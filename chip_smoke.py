@@ -1,0 +1,522 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``cs_vit_tpu_torch``) on one GPU.
+
+Run from the repository root on a machine with an NVIDIA H100 and ``nvcc``:
+
+    python3 chip_smoke.py
+
+It builds the CUDA kernels from ``cs_vit_tpu_torch/ops/csrc/`` and then, in
+order, failing (non-zero exit, no result line) at the first phase that fails:
+
+1. prints the card (``nvidia-smi`` name and power limit), turns TF32 off;
+2. builds the kernels and prints the build time and the compiler's
+   register/spill report;
+3. holds each kernel, and the whole ``fused_swin_block``, against its plain
+   PyTorch version at every Swin-B-256 block geometry (stages 0/1 with and
+   without shift, stage 2, stage 3 at L=64), at batch 1 and 8 (the serving
+   path's shapes) and 2, bf16 and f32;
+4. serves the flagship model (Swin-B-256 Poser, img 256, bf16, synthetic
+   MANO, seeded random weights) through ``PoserSession`` at batch 1 and 8,
+   checks the outputs, the kernel launch counts per forward, and the kernel
+   path against the eager path on the card;
+5. times every kernel at the serving path's shapes (batch 8) beside its plain
+   version, one library call and its bound, and the serve latency at b1/b8;
+6. prints ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}`` as
+   the last line.
+
+It imports nothing of JAX or of ``cs_vit_tpu``.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+
+DEV = "cuda"
+BACKBONE, IMG = "swinv2-base-256", 256
+
+# batches of the kernel checks: the serving path's 1 and 8, and 2
+CHECK_BATCHES = (1, 2, 8)
+# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): bytes/s and FLOP/s
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+
+# Swin-B-256 block geometries: (stage, res, C, heads, ws, shift, blocks)
+GEOMS = (
+    (0, 64, 128, 4, 16, 0, 1), (0, 64, 128, 4, 16, 8, 1),
+    (1, 32, 256, 8, 16, 0, 1), (1, 32, 256, 8, 16, 8, 1),
+    (2, 16, 512, 16, 16, 0, 18),
+    (3, 8, 1024, 32, 8, 0, 2),
+)
+KERNEL_SOURCE = "cs_vit_tpu_torch/ops/csrc/fused_block.cu"
+REPLACES = "cs_vit_tpu/ops/fused_block.py:738"
+# kernel vs plain: max |kernel - plain| / max |plain|. f32: only the order of
+# f32 sums differs (K <= 4096 terms). bf16: both round at the same points, so
+# a differing f32 sum flips an output by at most a few bf16 ulps (2^-8); the
+# whole block chains seven such roundings.
+TOL = {"f32": {"kernel": 2e-4, "block": 5e-4}, "bf16": {"kernel": 1.6e-2, "block": 4e-2}}
+# served model, kernel path vs eager path on the card, same weights and inputs.
+# Backbone tokens (relative to their largest magnitude): f32 differs by sum
+# order only; bf16 rounds activations to 8 bits at 7 points in each of the 24
+# blocks where the eager path (promoted to f32 after its first block, as in
+# the JAX package) does not. joint_cam (mm): with random weights the heads
+# amplify any perturbation of the tokens, so each dtype is held to its own
+# noise floor, measured in the run. f32: the largest joint_cam shift of the
+# eager f32 model when its tokens are perturbed by the kernel path's own token
+# difference with its entries permuted (same sizes, other places; WITNESSES
+# draws). bf16: the distance of the bf16 eager path from the f32 eager path.
+# The bound is twice the floor plus SERVE_MM_SLACK.
+SERVE_TOKEN_TOL = {"f32": 1e-4, "bf16": 5e-2}
+SERVE_MM_SLACK = {"f32": 0.01, "bf16": 1.0}
+WITNESSES = 8
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", file=sys.stderr)
+    raise SystemExit(1)
+
+
+def sync(torch) -> None:
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+
+
+def rel_err(got, want) -> tuple:
+    g, w = got.float(), want.float()
+    if not (bool(g.isfinite().all()) and bool(w.isfinite().all())):
+        return math.inf, math.inf
+    err = (g - w).abs().max().item()
+    return err, err / max(w.abs().max().item(), 1e-30)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def block_inputs(torch, B, res, C, heads, ws, shift, dtype, seed):
+    """Seeded block operands at one geometry, with a CPB-like bias."""
+    from cs_vit_tpu_torch.models.swinv2 import _shift_attn_mask
+
+    g = torch.Generator().manual_seed(seed)
+
+    def n(*shape, std=1.0):
+        return torch.randn(*shape, generator=g) * std
+
+    L, Ch = ws * ws, 4 * C
+    t = dict(
+        x=n(B, res, res, C),
+        wqkv=n(C, 3 * C, std=C ** -0.5), bqkv=n(3 * C, std=0.02),
+        wproj=n(C, C, std=C ** -0.5), bproj=n(C, std=0.02),
+        ln1_scale=1 + n(C, std=0.1), ln1_bias=n(C, std=0.1),
+        w1=n(C, Ch, std=C ** -0.5), b1=n(Ch, std=0.02),
+        w2=n(Ch, C, std=Ch ** -0.5), b2=n(C, std=0.02),
+        ln2_scale=1 + n(C, std=0.1), ln2_bias=n(C, std=0.1),
+        rel_bias=16 * torch.sigmoid(n(heads, L, L)),
+    )
+    t["bqkv"][C:2 * C] = 0  # SwinV2 key has no bias
+    t = {k: v.to(DEV, dtype) for k, v in t.items()}
+    t["logit_scale"] = torch.exp(torch.clamp(math.log(10.0) + n(heads, std=0.5),
+                                             max=math.log(100.0))).to(DEV)
+    t["mask"] = (torch.from_numpy(_shift_attn_mask(res, res, ws, shift)).to(DEV, dtype)
+                 if shift else None)
+    t["dp"] = torch.tensor([[[1.0, 1.0], [0.0, 2.0]][b % 2] for b in range(B)], device=DEV)
+    return t
+
+
+def kernel_checks(torch, fb, dname, geom, B=2):
+    """Every kernel and the whole block against its plain version at one
+    block geometry and batch B: [(kernel, what, max_abs, rel, tol)]."""
+    stage, res, C, heads, ws, shift, _ = geom
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dname]
+    tol = TOL[dname]
+    t = block_inputs(torch, B, res, C, heads, ws, shift, dtype, seed=stage * 10 + shift + 100 * B)
+    M = B * res * res
+    x2 = t["x"].reshape(M, C)
+    pairs = []
+    qkv = fb.gemm_bias_act_reference(x2, t["wqkv"], t["bqkv"])
+    pairs.append(("gemm_bias_act", "qkv", fb.gemm_bias_act(x2, t["wqkv"], t["bqkv"]), qkv))
+    h = fb.gemm_bias_act_reference(x2, t["w1"], t["b1"], act="gelu")
+    pairs.append(("gemm_bias_act", "mlp1+gelu",
+                  fb.gemm_bias_act(x2, t["w1"], t["b1"], act="gelu"), h))
+    m2 = fb.gemm_bias_act_reference(h, t["w2"], t["b2"], out_dtype=torch.float32)
+    pairs.append(("gemm_bias_act", "mlp2 f32-out",
+                  fb.gemm_bias_act(h, t["w2"], t["b2"], out_dtype=torch.float32), m2))
+    kw = dict(window_size=ws, num_heads=heads, shift=shift)
+    qkv4 = qkv.reshape(B, res, res, 3 * C)
+    pairs.append(("swin_window_attn_fwd", "attn",
+                  fb.window_attention(qkv4, t["rel_bias"], t["logit_scale"], t["mask"], **kw),
+                  fb.window_attention_reference(qkv4, t["rel_bias"], t["logit_scale"],
+                                                t["mask"], **kw)))
+    ln1 = (m2, x2, t["ln1_scale"], t["ln1_bias"], t["dp"], 0, 1e-5, dtype)
+    y32, ydt = fb.ln_residual_reference(*ln1)
+    kdt, k32 = fb.ln_residual(*ln1, keep_f32=True)
+    pairs += [("ln_residual", "ln1 dt", kdt, ydt), ("ln_residual", "ln1 f32", k32, y32)]
+    ln2 = (m2, y32, t["ln2_scale"], t["ln2_bias"], t["dp"], 1, 1e-5, dtype)
+    pairs.append(("ln_residual", "ln2 f32-res", fb.ln_residual(*ln2)[0],
+                  fb.ln_residual_reference(*ln2)[1]))
+    # whole block: seven launches vs block_reference on rolled windows
+    args = [t[k] for k in ("wqkv", "bqkv", "wproj", "bproj", "ln1_scale", "ln1_bias",
+                           "w1", "b1", "w2", "b2", "ln2_scale", "ln2_bias",
+                           "rel_bias", "logit_scale")]
+    y = fb.fused_swin_block(t["x"], *args, mask=t["mask"], droppath_keep=t["dp"],
+                            window_size=ws, num_heads=heads, eps=1e-5, shift=shift)
+    xr = torch.roll(t["x"], (-shift, -shift), (1, 2))
+    yr = torch.roll(fb.block_reference(xr, *args, t["dp"], t["mask"], window_size=ws,
+                                       num_heads=heads, eps=1e-5), (shift, shift), (1, 2))
+    pairs.append(("fused_swin_block", "whole block", y, yr))
+    sync(torch)
+    return [
+        (name, what, *rel_err(got, want), tol["block" if name == "fused_swin_block" else "kernel"])
+        for name, what, got, want in pairs
+    ]
+
+
+def check_kernels(torch, fb):
+    """Phase 3: kernel_checks at every geometry and batch, bf16 and f32;
+    fails on the first disagreement. Returns each kernel's worst bf16 max_abs."""
+    worst = {"gemm_bias_act": 0.0, "ln_residual": 0.0, "swin_window_attn_fwd": 0.0}
+    for dname in ("bf16", "f32"):
+        for geom, B in ((g, B) for g in GEOMS for B in CHECK_BATCHES):
+            for name, what, err, rel, tol in kernel_checks(torch, fb, dname, geom, B):
+                status = "ok" if rel <= tol else "FAIL"
+                print(f"check {dname} b{B} stage{geom[0]} shift{geom[5]} {name:21s} {what:13s} "
+                      f"max_abs={err:.3e} rel={rel:.3e} tol={tol:.1e} {status}")
+                if status != "ok":
+                    fail(f"{name} ({what}) disagrees with its plain version")
+                if dname == "bf16" and name in worst:
+                    worst[name] = max(worst[name], err)
+    return worst
+
+
+def cuda_ms(torch, fn, iters=20, warmup=3):
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    sync(torch)
+    return start.elapsed_time(end) / iters
+
+
+def time_kernels(torch, fb, F, B=8):
+    """Phase 5: per-forward totals at batch B, bf16, summed over the 24 blocks."""
+    bf = torch.bfloat16
+    tot = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes_s": 0.0, "flops_s": 0.0,
+               "bound_ms": 0.0} for k in ("gemm_bias_act", "ln_residual", "swin_window_attn_fwd")}
+
+    def add(name, n_blocks, ms, plain, lib, nbytes, flops, peak, what=""):
+        tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+        print(f"timed stage{stage} shift{shift} {name} {what}: {ms:.4f} ms, plain {plain:.4f} ms, "
+              f"library {lib:.4f} ms, bound {max(tb, tf):.4f} ms "
+              f"({'bytes' if tb >= tf else 'operations'}) x{n_blocks} blocks")
+        r = tot[name]
+        r["ms"] += n_blocks * ms
+        r["plain_ms"] += n_blocks * plain
+        r["library_ms"] += n_blocks * lib
+        r["bytes_s"] += n_blocks * tb
+        r["flops_s"] += n_blocks * tf
+        r["bound_ms"] += n_blocks * max(tb, tf)
+
+    for stage, res, C, heads, ws, shift, n_blocks in GEOMS:
+        t = block_inputs(torch, B, res, C, heads, ws, shift, bf, seed=100 + stage)
+        M, L, Ch = B * res * res, ws * ws, 4 * C
+        x2 = t["x"].reshape(M, C)
+        # the four GEMMs of a block
+        for (K, N, act, odt, a, w, b) in (
+            (C, 3 * C, "none", bf, x2, t["wqkv"], t["bqkv"]),
+            (C, C, "none", torch.float32, x2, t["wproj"], t["bproj"]),
+            (C, Ch, "gelu", bf, x2, t["w1"], t["b1"]),
+            (Ch, C, "none", torch.float32, torch.randn(M, Ch, device=DEV).to(bf),
+             t["w2"], t["b2"]),
+        ):
+            ms = cuda_ms(torch, lambda: fb.gemm_bias_act(a, w, b, act=act, out_dtype=odt))
+            plain = cuda_ms(torch, lambda: fb.gemm_bias_act_reference(a, w, b, act=act, out_dtype=odt))
+            lib = cuda_ms(torch, lambda: torch.addmm(b, a, w))
+            nbytes = (M * K + K * N + N) * 2 + M * N * (4 if odt == torch.float32 else 2)
+            add("gemm_bias_act", n_blocks, ms, plain, lib, nbytes, 2 * M * N * K,
+                PEAK_FLOPS["bf16"], f"M{M} K{K} N{N} {act}")
+        # the two LayerNorm-residuals of a block
+        z = torch.randn(M, C, device=DEV)
+        r32 = torch.randn(M, C, device=DEV)
+        for res_t, keep in ((x2, True), (r32, False)):
+            g, be = t["ln1_scale"], t["ln1_bias"]
+            ms = cuda_ms(torch, lambda: fb.ln_residual(z, res_t, g, be, None, 0, 1e-5, bf, keep))
+            plain = cuda_ms(torch, lambda: fb.ln_residual_reference(z, res_t, g, be, None, 0, 1e-5, bf))
+            lib = cuda_ms(torch, lambda: res_t + F.layer_norm(z, (C,), g.float(), be.float(), 1e-5))
+            nbytes = M * C * (4 + res_t.element_size() + 2 + (4 if keep else 0)) + 2 * C * 2
+            add("ln_residual", n_blocks, ms, plain, lib, nbytes, 8 * M * C, PEAK_FLOPS["f32"],
+                f"M{M} C{C} res-{res_t.dtype}")
+        # window attention
+        qkv = torch.randn(B, res, res, 3 * C, device=DEV).to(bf)
+        kw = dict(window_size=ws, num_heads=heads, shift=shift)
+        rb, ls, mk = t["rel_bias"], t["logit_scale"], t["mask"]
+        ms = cuda_ms(torch, lambda: fb.window_attention(qkv, rb, ls, mk, **kw))
+        plain = cuda_ms(torch, lambda: fb.window_attention_reference(qkv, rb, ls, mk, **kw))
+        # library yardstick: SDPA on pre-rolled, pre-partitioned, pre-normalised
+        # q/k/v with the scale folded into q and bias+mask as one float mask
+        hd = C // heads
+        win = fb.window_partition(torch.roll(qkv, (-shift, -shift), (1, 2)) if shift else qkv, ws)
+        win = win.reshape(-1, L, 3, heads, hd).permute(2, 0, 3, 1, 4)
+        q = F.normalize(win[0].float(), dim=-1) * ls.reshape(1, heads, 1, 1)
+        k = F.normalize(win[1].float(), dim=-1)
+        nW = (res // ws) ** 2
+        bias = rb.float()[None].expand(nW, heads, L, L)
+        if mk is not None:
+            bias = bias + mk.float()[:, None]
+        bias = bias[None].expand(B, nW, heads, L, L).reshape(B * nW, heads, L, L).to(bf).contiguous()
+        q, k, v = q.to(bf).contiguous(), k.to(bf).contiguous(), win[2].contiguous()
+        lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=1.0))
+        # q|k|v in, o out; bias and mask in their own dtype (bf16, as served)
+        nbytes = (M * 3 * C * 2 + M * C * 2 + heads * 4
+                  + (heads * L * L + (nW * L * L if shift else 0)) * rb.element_size())
+        add("swin_window_attn_fwd", n_blocks, ms, plain, lib, nbytes,
+            4 * L * hd * M * heads, PEAK_FLOPS["bf16"], f"B{B} L{L} heads{heads}")
+    return tot
+
+
+def serve(torch, fb):
+    """Phase 4: the flagship model through PoserSession, b1 and b8."""
+    import numpy as np
+
+    from cs_vit_tpu_torch.config import FinetuneConfig
+    from cs_vit_tpu_torch.serving import PoserSession
+
+    cfg = FinetuneConfig(exp="chip_smoke", backbone=BACKBONE, img_size=IMG,
+                         phase="inference", attention_impl="auto")
+    rng = np.random.default_rng(0)
+
+    def request(N):
+        S = IMG
+        x0 = rng.uniform(40, 200, size=(N, 1, 1)).astype(np.float32)
+        y0 = rng.uniform(40, 200, size=(N, 1, 1)).astype(np.float32)
+        side = rng.uniform(120, 300, size=(N, 1, 1)).astype(np.float32)
+        return (
+            rng.uniform(size=(N, 1, S, S, 3)).astype(np.float32),
+            np.concatenate([x0, y0, x0 + side, y0 + side], -1),
+            np.zeros((N, 1), np.float32),
+            rng.uniform(500, 700, size=(N, 1, 2)).astype(np.float32),
+            rng.uniform(200, 320, size=(N, 1, 2)).astype(np.float32),
+        )
+
+    t0 = time.perf_counter()
+    s8 = PoserSession(cfg, batch_size=8, dtype="bfloat16", device=DEV)
+    s1 = PoserSession(cfg, batch_size=1, dtype="bfloat16", device=DEV)
+    s8.warmup()
+    s1.warmup()
+    sync(torch)
+    print(f"serve: sessions built and warmed in {time.perf_counter() - t0:.1f} s")
+
+    requests = [(s8, request(8)), (s8, request(11)), (s1, request(3))]
+    forwards = sum(math.ceil(r[0].shape[0] / s.batch_size) for s, r in requests)
+    fb.reset_launch_counts()
+    outs = [s.predict_crops(*r) for s, r in requests]
+    sync(torch)
+    counts = fb.launch_counts()
+    print(f"serve: {forwards} forwards, launches {json.dumps(counts)}")
+    depth = sum(s8.model.backbone.config.depths)
+    expect = {"fused_swin_block": depth, "swin_window_attn_fwd": depth,
+              "gemm_bias_act": 4 * depth, "ln_residual": 2 * depth}
+    fwd_name = {"fused_swin_block": "fused_swin_block", "swin_window_attn_fwd": "window_attention",
+                "gemm_bias_act": "gemm_bias_act", "ln_residual": "ln_residual"}
+    for name, per in expect.items():
+        if counts[fwd_name[name]] != per * forwards:
+            fail(f"{name}: {counts[fwd_name[name]]} launches for {forwards} forwards, "
+                 f"expected {per} per forward")
+    for (s, r), out in zip(requests, outs):
+        N = r[0].shape[0]
+        jc = out["joint_cam"]
+        if jc.shape != (N, 1, 21, 3) or not np.isfinite(jc).all():
+            fail(f"joint_cam has shape {jc.shape} or non-finite values")
+        if out["verts_cam"].shape != (N, 1, 778, 3) or not np.isfinite(out["verts_cam"]).all():
+            fail("verts_cam has the wrong shape or non-finite values")
+    print("serve: joint_cam finite, shapes [N,1,21,3] for N = 8, 11 (padded), 3 (b1)")
+
+    # kernel path vs eager path on the card: sessions of one config (so one
+    # set of weights) that differ only in attention_impl, on the same inputs
+    req = request(8)
+    jc, tokens = {}, {}
+    for dname, dtype in (("bf16", "bfloat16"), ("f32", "float32")):
+        for impl in ("fused", "eager"):
+            sess = PoserSession(FinetuneConfig(**dict(cfg.to_dict(), attention_impl=impl)),
+                                batch_size=8, dtype=dtype, device=DEV)
+            jc[dname, impl] = sess.predict_crops(*req)["joint_cam"]
+            x = torch.as_tensor(req[0][:, 0]).to(DEV, sess._dtype)
+            x = ((x.float() - sess.model.img_mean) / sess.model.img_std).to(sess._dtype)
+            with torch.no_grad():
+                tokens[dname, impl] = sess.model.backbone(x)
+            if (dname, impl) == ("f32", "eager"):
+                eager32 = sess
+            del sess
+    for dname in ("f32", "bf16"):
+        err, rel = rel_err(tokens[dname, "fused"], tokens[dname, "eager"])
+        ok = rel <= SERVE_TOKEN_TOL[dname]
+        print(f"serve: {dname} backbone tokens kernel path vs eager path: max_abs={err:.4e} "
+              f"rel={rel:.4e} tol={SERVE_TOKEN_TOL[dname]:.0e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"{dname} backbone tokens of the kernel path disagree with the eager path")
+
+    # noise floors in mm (see SERVE_MM_SLACK): the eager f32 model's heads on
+    # given tokens, its backbone swapped out for the duration
+    class FixedTokens(torch.nn.Module):
+        def __init__(self, t):
+            super().__init__()
+            self.t = t
+
+        def forward(self, x):
+            return self.t
+
+    def head_mm(t):
+        backbone, eager32.model.backbone = eager32.model.backbone, FixedTokens(t)
+        try:
+            return float(np.abs(eager32.predict_crops(*req)["joint_cam"]
+                                - jc["f32", "eager"]).max())
+        finally:
+            eager32.model.backbone = backbone
+
+    base = tokens["f32", "eager"]
+    delta = (tokens["f32", "fused"] - base).flatten()
+    gen = torch.Generator().manual_seed(0)
+    shifts = [head_mm(base + delta[torch.randperm(delta.numel(), generator=gen).to(DEV)]
+                      .reshape(base.shape)) for _ in range(WITNESSES)]
+    print(f"serve: f32 head on eager tokens + permuted kernel-path token difference: "
+          f"joint_cam moves {', '.join(f'{v:.4f}' for v in shifts)} mm; on the kernel "
+          f"path's own tokens {head_mm(tokens['f32', 'fused']):.4f} mm, on the eager "
+          f"path's own {head_mm(base):.4f} mm")
+    floor = {"f32": max(shifts),
+             "bf16": float(np.abs(jc["bf16", "eager"] - jc["f32", "eager"]).max())}
+    print(f"serve: joint_cam noise floor f32 {floor['f32']:.4f} mm, bf16 (|eager bf16 - "
+          f"eager f32|) {floor['bf16']:.4f} mm; max|joint_cam| = "
+          f"{float(np.abs(jc['f32', 'eager']).max()):.1f} mm")
+    for dname in ("f32", "bf16"):
+        err = float(np.abs(jc[dname, "fused"] - jc[dname, "eager"]).max())
+        tol = 2 * floor[dname] + SERVE_MM_SLACK[dname]
+        ok = err <= tol
+        print(f"serve: {dname} joint_cam kernel path vs eager path: max_abs={err:.4f} mm, "
+              f"tol={tol:.4f} mm {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"{dname} kernel path disagrees with the eager path")
+    del eager32
+    return s1, s8, request, counts, forwards
+
+
+def serve_latency(torch, s1, s8, request):
+    out = {}
+    for name, sess in (("b1", s1), ("b8", s8)):
+        req = request(sess.batch_size)
+        for _ in range(3):
+            sess.predict_crops(*req)
+        times = []
+        for _ in range(20):
+            sync(torch)
+            t0 = time.perf_counter()
+            sess.predict_crops(*req)
+            sync(torch)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = statistics.median(times)
+        out[name + "_min"] = min(times)
+    out["crops_per_s_b8"] = 8e3 / out["b8"]
+    return out
+
+
+def profile_forward(torch, s8, request, latency_ms):
+    """Device time by kernel over one b8 forward (torch.profiler / CUPTI)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    req = request(8)
+    s8.predict_crops(*req)
+    sync(torch)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        s8.predict_crops(*req)
+        sync(torch)
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        if dev_us > 0:
+            rows.append((dev_us / 1e3, ev.count, ev.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    if busy == 0:
+        print("profile: no device time recorded (not measured)")
+        return
+    print(f"profile: b8 forward wall {wall:.3f} ms, device busy {busy:.3f} ms "
+          f"(idle share {max(0.0, 1 - busy / wall):.3f}; against the unprofiled median "
+          f"{latency_ms:.3f} ms: {max(0.0, 1 - busy / latency_ms):.3f})")
+    for ms, count, key in rows[:15]:
+        print(f"profile: {ms:9.3f} ms  x{count:4d}  {key[:90]}")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch.cuda.is_available() is False: chip_smoke.py needs one CUDA card",
+              file=sys.stderr)
+        return 1
+    import torch.nn.functional as F
+
+    from cs_vit_tpu_torch.ops import _build
+    from cs_vit_tpu_torch.ops import fused_block as fb
+
+    card = nvidia_smi_line()
+    print(card)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t0 = time.perf_counter()
+    secs = _build.build()
+    print(f"build: {json.dumps(secs)} (wall {time.perf_counter() - t0:.1f} s)")
+    for name in secs:
+        log = _build.library_path(name).with_name(_build.library_path(name).name + ".log")
+        if log.exists():
+            for line in log.read_text().splitlines():
+                if "registers" in line or "spill" in line or "Compiling entry" in line:
+                    print(f"ptxas {name}: {line.strip()}")
+
+    worst = check_kernels(torch, fb)
+    s1, s8, request, counts, forwards = serve(torch, fb)
+    tot = time_kernels(torch, fb, F)
+    lat = serve_latency(torch, s1, s8, request)
+    print(f"serve_b1_ms {lat['b1']:.3f} (min {lat['b1_min']:.3f})")
+    print(f"serve_b8_ms {lat['b8']:.3f} (min {lat['b8_min']:.3f})")
+    print(f"crops_per_s_b8 {lat['crops_per_s_b8']:.1f}")
+    profile_forward(torch, s8, request, lat["b8"])
+
+    launch_key = {"gemm_bias_act": "gemm_bias_act", "ln_residual": "ln_residual",
+                  "swin_window_attn_fwd": "window_attention"}
+    kernels = []
+    for name, r in tot.items():
+        print(f"kernel {name}: per b8 forward {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+              f"library {r['library_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+              f"(bytes {r['bytes_s']:.4f} ms, operations {r['flops_s']:.4f} ms)")
+        kernels.append({
+            "name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
+            "launches": counts[launch_key[name]], "max_abs_err": worst[name],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": "bytes" if r["bytes_s"] >= r["flops_s"] else "operations",
+            "library_ms": r["library_ms"],
+        })
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

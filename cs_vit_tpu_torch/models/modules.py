@@ -1,0 +1,162 @@
+"""Transformer building blocks for the Poser head (port of
+``cs_vit_tpu/models/modules.py``).
+
+Two reference quirks stay on by default, as in the JAX package:
+
+* ``MHA`` multiplies attention scores by sqrt(head_dim) (``compat_scale``).
+* Block norms are BatchNorm1d over channels, not LayerNorm.
+
+Dtype flow follows flax: a ``Linear`` computes in the promotion of its input
+and weight dtypes (a bf16 layer fed f32 runs in f32), and the norms take f32
+statistics but hand back their input's dtype.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` with flax ``Dense`` dtype promotion."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = torch.promote_types(x.dtype, self.weight.dtype)
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+def layer_norm(
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float
+) -> torch.Tensor:
+    """flax LayerNorm: f32 statistics as E[x^2]-E[x]^2 clamped at 0, output
+    in the promotion of the input and parameter dtypes."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mean * mean, min=0.0)
+    y = (xf - mean) * torch.rsqrt(var + eps) * weight.float() + bias.float()
+    out_dt = torch.promote_types(torch.promote_types(x.dtype, weight.dtype), bias.dtype)
+    return y.to(out_dt)
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` parameters with :func:`layer_norm` numerics."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, self.weight, self.bias, self.eps)
+
+
+class TorchBatchNorm(nn.BatchNorm1d):
+    """BatchNorm1d over the last axis of a [..., C] input, inference only.
+
+    Running statistics are f32 buffers; the affine runs in f32 and the output
+    keeps the input dtype. Batch statistics (the training mode) belong to the
+    train-step slice of the port and are refused here.
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError(
+                "TorchBatchNorm runs with running statistics only; call .eval()"
+            )
+        xf = x.float()
+        y = (xf - self.running_mean.float()) * torch.rsqrt(
+            self.running_var.float() + self.eps
+        )
+        y = y * self.weight.float() + self.bias.float()
+        return y.to(x.dtype)
+
+
+class MHA(nn.Module):
+    """Multi-head attention with the reference's score scaling.
+
+    ``compat_scale=True`` multiplies QK^T by sqrt(head_dim); ``False`` uses the
+    standard 1/sqrt(head_dim). Softmax runs in f32 whatever the activation
+    dtype.
+    """
+
+    def __init__(self, embed_dim: int, num_heads: int, compat_scale: bool = True):
+        super().__init__()
+        assert embed_dim % num_heads == 0
+        self.embed_dim, self.num_heads = embed_dim, num_heads
+        self.compat_scale = compat_scale
+        self.query = Linear(embed_dim, embed_dim)
+        self.key = Linear(embed_dim, embed_dim)
+        self.value = Linear(embed_dim, embed_dim)
+        self.output = Linear(embed_dim, embed_dim)
+
+    def forward(self, x: torch.Tensor, ctx: torch.Tensor) -> torch.Tensor:
+        B, L, _ = x.shape
+        S = ctx.shape[1]
+        H = self.num_heads
+        hd = self.embed_dim // H
+        q = self.query(x).reshape(B, L, H, hd).transpose(1, 2)
+        k = self.key(ctx).reshape(B, S, H, hd).transpose(1, 2)
+        v = self.value(ctx).reshape(B, S, H, hd).transpose(1, 2)
+        scale = math.sqrt(hd) if self.compat_scale else 1.0 / math.sqrt(hd)
+        scores = (q @ k.transpose(-1, -2)) * scale
+        weights = torch.softmax(scores.float(), dim=-1).to(v.dtype)
+        out = (weights @ v).transpose(1, 2).reshape(B, L, self.embed_dim)
+        return self.output(out)
+
+
+class FeedForwardNetwork(nn.Module):
+    """Linear -> exact-erf GELU -> Linear (reference names ``net.0``/``net.2``)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.net = nn.Sequential(Linear(dim, 4 * dim), nn.GELU(), Linear(4 * dim, dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.net(x)
+
+
+class EncoderBlock(nn.Module):
+    def __init__(self, dim: int, num_heads: int, compat_scale: bool = True):
+        super().__init__()
+        self.attn = MHA(dim, num_heads, compat_scale)
+        self.ffn = FeedForwardNetwork(dim)
+        self.norm1 = TorchBatchNorm(dim)
+        self.norm2 = TorchBatchNorm(dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.norm1(x)
+        x = x + self.attn(y, y)
+        return x + self.ffn(self.norm2(x))
+
+
+class DecoderBlock(nn.Module):
+    def __init__(self, dim: int, num_heads: int, compat_scale: bool = True):
+        super().__init__()
+        self.self_atten = MHA(dim, num_heads, compat_scale)
+        self.cross_atten = MHA(dim, num_heads, compat_scale)
+        self.ffn = FeedForwardNetwork(dim)
+        self.norm1 = TorchBatchNorm(dim)
+        self.norm2 = TorchBatchNorm(dim)
+        self.norm3 = TorchBatchNorm(dim)
+
+    def forward(self, x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+        y = self.norm1(x)
+        x = x + self.self_atten(y, y)
+        x = x + self.cross_atten(self.norm2(x), ref)
+        return x + self.ffn(self.norm3(x))
+
+
+class PositionalEncoding(nn.Module):
+    """Learned absolute positional encoding (reference ``pe.weight`` [max_len, D]).
+
+    The continuous-time ``"trope"`` mode serves the realtime temporal
+    encoder, which a later slice of the port brings.
+    """
+
+    def __init__(self, d_model: int, max_len: int = 512, mode: str = "absolute"):
+        super().__init__()
+        if mode != "absolute":
+            raise NotImplementedError(f"positional encoding mode {mode!r} is not ported")
+        self.pe = nn.Embedding(max_len, d_model)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.pe.weight[: x.shape[1]]

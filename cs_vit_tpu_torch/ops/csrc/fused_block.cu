@@ -1,0 +1,491 @@
+// SwinV2 block forward for Hopper (sm_90a): the three kernels behind
+// cs_vit_tpu_torch/ops/fused_block.py:fused_swin_block.
+//
+// Replaces the TPU kernel cs_vit_tpu/ops/fused_block.py:_pallas_forward
+// (kernel body _block_kernel/_block_body), which computes a whole block in
+// one Pallas call with every weight resident in up to 100 MB of VMEM. A
+// Hopper block has 227 KB of shared memory, so the block is split where the
+// data allows: every op but attention works on one token at a time (the
+// GEMMs, both LayerNorms, the residuals), so only the attention kernel knows
+// about windows and the cyclic shift. The GEMMs run over the B*H*W token rows
+// in their original order; no roll or window-partition pass touches device
+// memory. One block forward = 7 launches:
+//   qkv = x Wqkv + b             gemm_bias_act  (dt out)
+//   o   = window attention(qkv)  swin_window_attn_fwd (dt out, shift by index)
+//   p   = o Wproj + b            gemm_bias_act  (f32 out)
+//   h1  = x + dp0 * LN(p)        ln_residual    (f32 and dt out)
+//   m   = gelu(h1 W1 + b1)       gemm_bias_act  (dt out)
+//   m2  = m W2 + b2              gemm_bias_act  (f32 out)
+//   y   = h1 + dp1 * LN(m2)      ln_residual    (dt out)
+// Numerics follow _block_reference: f32 accumulation, LN statistics as
+// E[x^2]-E[x]^2 clamped at 0, exact-erf GELU (erff), q/k L2-normalised in
+// f32 with eps 1e-24 and rounded to the compute dtype before the score
+// product, softmax in f32 and p rounded to the compute dtype before p.v.
+//
+// What bounds each kernel on the H100, and what the design does about it:
+//  * gemm_bias_act: operations. 24*C^2 of the 24*C^2 + 4*L*C FLOPs per token
+//    are GEMMs. bf16 tiles of 64x128x32 go through the tensor cores (WMMA,
+//    mma.sync underneath) from a two-stage cp.async ring; bias and GELU are
+//    applied in the epilogue so no extra pass reads the product. No wgmma/TMA
+//    yet: that is the next step for speed.
+//  * swin_window_attn_fwd: bytes at the bf16 tensor-core peak (at L=256,
+//    4*L*hd = 32768 FLOPs per query and head against 4*hd*2 = 256 bytes of
+//    q, k, v and o: 128 FLOP/byte, under the H100's ~295), but run on SIMT
+//    f32 math (no tensor cores yet) it is held by the FMA rate. The L x L
+//    scores never leave shared memory. One CUDA block per (query tile of 32,
+//    head, image*window); the cyclic shift and the window partition are index
+//    arithmetic on the gather and the scatter. rel_bias and the shift mask
+//    are read in the compute dtype, as the TPU kernel takes them, and widened
+//    to f32 in registers.
+//  * ln_residual: bytes. One warp per token row, one read of each input and
+//    one write of each output. A null dp means keep-scales of 1 (inference).
+//
+// Plain C interface for ctypes. Every entry point returns cudaGetLastError()
+// right after its launch; it launches on the caller's stream, allocates
+// nothing and does not synchronise.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <mma.h>
+#include <stdint.h>
+
+typedef __nv_bfloat16 bf16;
+
+namespace {
+
+template <typename T> __device__ __forceinline__ float to_f(T v);
+template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ float to_f<bf16>(bf16 v) { return __bfloat162float(v); }
+
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16(v); }
+
+// value as it reads after a round trip through the compute dtype
+template <typename T> __device__ __forceinline__ float round_to(float v) {
+  return to_f<T>(from_f<T>(v));
+}
+
+__device__ __forceinline__ float gelu_erf(float x) {
+  return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// ---------------------------------------------------------------------------
+// gemm_bias_act: out[M,N] = act(A[M,K] . W[K,N] + bias[N])
+// ---------------------------------------------------------------------------
+
+constexpr int GB_M = 64, GB_N = 128, GB_K = 32, G_THREADS = 128;
+constexpr int A_LD = GB_K + 8;  // padded rows: 80 B, keeps WMMA pointers 32 B aligned
+constexpr int B_LD = GB_N + 8;  // 272 B
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  int n = pred ? 16 : 0;  // 0 source bytes = zero fill
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// bf16 operands on the tensor cores; K and N must be multiples of 8 so that
+// every 16-byte chunk is wholly inside or wholly outside the matrix.
+template <int ACT, typename OutT>
+__global__ void __launch_bounds__(G_THREADS)
+gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
+                 const bf16* __restrict__ bias, OutT* __restrict__ out,
+                 int M, int N, int K) {
+  namespace nw = nvcuda::wmma;
+  __shared__ __align__(128) bf16 As[2][GB_M * A_LD];
+  __shared__ __align__(128) bf16 Bs[2][GB_K * B_LD];
+  __shared__ __align__(128) float Cs[G_THREADS / 32][16 * 16];
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int m0 = blockIdx.y * GB_M, n0 = blockIdx.x * GB_N;
+  const int wr = warp >> 1, wc = warp & 1;  // 2x2 warps, 32x64 each
+
+  auto load_tile = [&](int buf, int k0) {
+    for (int c = tid; c < GB_M * GB_K / 8; c += G_THREADS) {
+      const int r = c >> 2, kc = (c & 3) * 8;
+      const int gm = m0 + r, gk = k0 + kc;
+      const bool ok = gm < M && gk < K;
+      cp_async16(&As[buf][r * A_LD + kc], ok ? A + (size_t)gm * K + gk : A, ok);
+    }
+    for (int c = tid; c < GB_K * GB_N / 8; c += G_THREADS) {
+      const int r = c >> 4, nc = (c & 15) * 8;
+      const int gk = k0 + r, gn = n0 + nc;
+      const bool ok = gk < K && gn < N;
+      cp_async16(&Bs[buf][r * B_LD + nc], ok ? W + (size_t)gk * N + gn : W, ok);
+    }
+    cp_async_commit();
+  };
+
+  nw::fragment<nw::accumulator, 16, 16, 16, float> acc[2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) nw::fill_fragment(acc[i][j], 0.0f);
+
+  const int nk = (K + GB_K - 1) / GB_K;
+  load_tile(0, 0);
+  for (int kt = 0; kt < nk; ++kt) {
+    const int buf = kt & 1;
+    if (kt + 1 < nk) {
+      load_tile(buf ^ 1, (kt + 1) * GB_K);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < GB_K; kk += 16) {
+      nw::fragment<nw::matrix_a, 16, 16, 16, bf16, nw::row_major> af[2];
+      nw::fragment<nw::matrix_b, 16, 16, 16, bf16, nw::row_major> bfr[4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        nw::load_matrix_sync(af[i], &As[buf][(wr * 32 + i * 16) * A_LD + kk], A_LD);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        nw::load_matrix_sync(bfr[j], &Bs[buf][kk * B_LD + wc * 64 + j * 16], B_LD);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) nw::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+  float* cs = Cs[warp];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      nw::store_matrix_sync(cs, acc[i][j], 16, nw::mem_row_major);
+      __syncwarp();
+      for (int e = lane; e < 256; e += 32) {
+        const int gm = m0 + wr * 32 + i * 16 + (e >> 4);
+        const int gn = n0 + wc * 64 + j * 16 + (e & 15);
+        if (gm < M && gn < N) {
+          float v = cs[e] + to_f(bias[gn]);
+          if (ACT == 1) v = gelu_erf(v);
+          out[(size_t)gm * N + gn] = from_f<OutT>(v);
+        }
+      }
+      __syncwarp();
+    }
+}
+
+// f32 operands: SIMT FMA (the tensor cores would round to TF32), 64x64 tile,
+// 4x4 outputs per thread.
+constexpr int FB = 64, FK = 16;
+
+template <int ACT>
+__global__ void __launch_bounds__(256)
+gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ W,
+                const float* __restrict__ bias, float* __restrict__ out,
+                int M, int N, int K) {
+  __shared__ float As[FK][FB + 1];
+  __shared__ float Bs[FK][FB + 1];
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int m0 = blockIdx.y * FB, n0 = blockIdx.x * FB;
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < K; k0 += FK) {
+    for (int e = tid; e < FB * FK; e += 256) {
+      const int r = e / FK, k = e % FK;
+      const int gm = m0 + r, gk = k0 + k;
+      As[k][r] = (gm < M && gk < K) ? A[(size_t)gm * K + gk] : 0.0f;
+      const int kr = e / FB, c = e % FB;
+      const int gk2 = k0 + kr, gn = n0 + c;
+      Bs[kr][c] = (gk2 < K && gn < N) ? W[(size_t)gk2 * N + gn] : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < FK; ++k) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[k][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = Bs[k][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int gm = m0 + ty + 16 * i, gn = n0 + tx + 16 * j;
+      if (gm < M && gn < N) {
+        float v = acc[i][j] + bias[gn];
+        if (ACT == 1) v = gelu_erf(v);
+        out[(size_t)gm * N + gn] = v;
+      }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// ln_residual: y = res + dp[b, col] * (LN(z) * gamma + beta), one warp per row
+// ---------------------------------------------------------------------------
+
+template <typename ResT, typename DT>
+__global__ void __launch_bounds__(256)
+ln_residual_kernel(const float* __restrict__ z, const ResT* __restrict__ res,
+                   const DT* __restrict__ gamma, const DT* __restrict__ beta,
+                   const float* __restrict__ dp, int dp_col, int rows_per_image,
+                   float* __restrict__ out_f32, DT* __restrict__ out_dt,
+                   int M, int C, float eps) {
+  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= M) return;
+  const float* zr = z + (size_t)row * C;
+  float s = 0.0f, ss = 0.0f;
+  for (int c = lane; c < C; c += 32) {
+    const float v = zr[c];
+    s += v;
+    ss += v * v;
+  }
+  s = warp_sum(s);
+  ss = warp_sum(ss);
+  const float mean = s / C;
+  const float var = fmaxf(ss / C - mean * mean, 0.0f);
+  const float r = rsqrtf(var + eps);
+  const float d = dp ? dp[(row / rows_per_image) * 2 + dp_col] : 1.0f;
+  const size_t base = (size_t)row * C;
+  for (int c = lane; c < C; c += 32) {
+    const float ln = (zr[c] - mean) * r * to_f(gamma[c]) + to_f(beta[c]);
+    const float y = to_f(res[base + c]) + d * ln;
+    if (out_f32) out_f32[base + c] = y;
+    if (out_dt) out_dt[base + c] = from_f<DT>(y);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// swin_window_attn_fwd: cosine window attention with the cyclic shift folded
+// into the gather/scatter indices. hd = 32 (one lane per channel), L = ws*ws
+// dividing 256, query tiles of min(32, L) rows.
+// ---------------------------------------------------------------------------
+
+constexpr int AT_THREADS = 256, AT_HD = 32, AT_QT = 32, AT_NWARPS = AT_THREADS / 32;
+
+__host__ __device__ constexpr size_t attn_smem_floats(int L, int QT) {
+  return (size_t)L * (AT_HD + 1) + (size_t)L * AT_HD + (size_t)QT * AT_HD + (size_t)QT * L;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(AT_THREADS)
+window_attn_kernel(const T* __restrict__ qkv, const T* __restrict__ rel_bias,
+                   const T* __restrict__ mask, const float* __restrict__ scale,
+                   T* __restrict__ out, int H, int W, int C, int ws, int shift) {
+  extern __shared__ __align__(16) float smem[];
+  const int L = ws * ws;
+  const int QT = L < AT_QT ? L : AT_QT;
+  float* Ks = smem;                   // [L][AT_HD+1] normalised k (odd stride: no bank conflicts)
+  float* Vs = Ks + L * (AT_HD + 1);   // [L][AT_HD]
+  float* Qs = Vs + L * AT_HD;         // [QT][AT_HD] normalised q
+  float* S = Qs + QT * AT_HD;         // [QT][L] scores, then p
+
+  const int nWc = W / ws, nW = (H / ws) * nWc;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z / nW, w = blockIdx.z % nW;
+  const int wr = w / nWc, wc = w % nWc;
+  const int q0 = blockIdx.x * QT;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const size_t C3 = 3 * (size_t)C;
+
+  // window token l of shifted window (wr, wc) is original token
+  // ((wr*ws + i + shift) mod H, (wc*ws + j + shift) mod W)
+  auto token = [&](int l) -> size_t {
+    const int i = l / ws, j = l % ws;
+    const int r = (wr * ws + i + shift) % H;
+    const int c = (wc * ws + j + shift) % W;
+    return ((size_t)b * H + r) * W + c;
+  };
+
+  for (int l = warp; l < L; l += AT_NWARPS) {
+    const size_t base = token(l) * C3 + (size_t)h * AT_HD + lane;
+    const float k = to_f(qkv[base + C]);
+    const float v = to_f(qkv[base + 2 * (size_t)C]);
+    const float rk = rsqrtf(warp_sum(k * k) + 1e-24f);
+    Ks[l * (AT_HD + 1) + lane] = round_to<T>(k * rk);
+    Vs[l * AT_HD + lane] = v;
+  }
+  for (int i = warp; i < QT; i += AT_NWARPS) {
+    const float q = to_f(qkv[token(q0 + i) * C3 + (size_t)h * AT_HD + lane]);
+    const float rq = rsqrtf(warp_sum(q * q) + 1e-24f);
+    Qs[i * AT_HD + lane] = round_to<T>(q * rq);
+  }
+  __syncthreads();
+
+  // scores: each thread owns key column j (k_j in registers) and a stride of rows
+  {
+    const float sc = scale[h];
+    const T* bias_h = rel_bias + (size_t)h * L * L;
+    const T* mask_w = mask ? mask + (size_t)w * L * L : nullptr;
+    const int nrg = AT_THREADS / L;
+    const int j = tid % L, rg = tid / L;
+    float kr[AT_HD];
+#pragma unroll
+    for (int d = 0; d < AT_HD; ++d) kr[d] = Ks[j * (AT_HD + 1) + d];
+    for (int i = rg; i < QT; i += nrg) {
+      const float4* qrow = reinterpret_cast<const float4*>(Qs + i * AT_HD);
+      float dot = 0.0f;
+#pragma unroll
+      for (int d4 = 0; d4 < AT_HD / 4; ++d4) {
+        const float4 qv = qrow[d4];
+        dot = fmaf(qv.x, kr[4 * d4 + 0], dot);
+        dot = fmaf(qv.y, kr[4 * d4 + 1], dot);
+        dot = fmaf(qv.z, kr[4 * d4 + 2], dot);
+        dot = fmaf(qv.w, kr[4 * d4 + 3], dot);
+      }
+      const size_t idx = (size_t)(q0 + i) * L + j;
+      float s = dot * sc + to_f(bias_h[idx]);
+      if (mask_w) s += to_f(mask_w[idx]);
+      S[i * L + j] = s;
+    }
+  }
+  __syncthreads();
+
+  // softmax (row max), one warp per row; p rounded to the compute dtype
+  for (int i = warp; i < QT; i += AT_NWARPS) {
+    float* row = S + i * L;
+    float m = -INFINITY;
+    for (int j = lane; j < L; j += 32) m = fmaxf(m, row[j]);
+    m = warp_max(m);
+    float sum = 0.0f;
+    for (int j = lane; j < L; j += 32) {
+      const float e = expf(row[j] - m);
+      row[j] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    for (int j = lane; j < L; j += 32) row[j] = round_to<T>(row[j] / sum);
+  }
+  __syncthreads();
+
+  // o = p . v: warp owns rows warp, warp+8, warp+16, warp+24; lane = channel
+  float acc[AT_QT / AT_NWARPS] = {};
+  for (int j = 0; j < L; j += 4) {
+    const float v0 = Vs[(j + 0) * AT_HD + lane];
+    const float v1 = Vs[(j + 1) * AT_HD + lane];
+    const float v2 = Vs[(j + 2) * AT_HD + lane];
+    const float v3 = Vs[(j + 3) * AT_HD + lane];
+#pragma unroll
+    for (int r = 0; r < AT_QT / AT_NWARPS; ++r) {
+      const int i = warp + AT_NWARPS * r;
+      if (i < QT) {
+        const float4 p = *reinterpret_cast<const float4*>(S + i * L + j);
+        acc[r] = fmaf(p.x, v0, fmaf(p.y, v1, fmaf(p.z, v2, fmaf(p.w, v3, acc[r]))));
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < AT_QT / AT_NWARPS; ++r) {
+    const int i = warp + AT_NWARPS * r;
+    if (i < QT) out[token(q0 + i) * C + (size_t)h * AT_HD + lane] = from_f<T>(acc[r]);
+  }
+}
+
+template <typename T>
+int launch_attn(const void* qkv, const void* rel_bias, const void* mask, const void* scale,
+                void* out, int B, int H, int W, int C, int heads, int ws, int shift,
+                cudaStream_t st) {
+  const int L = ws * ws;
+  const int QT = L < AT_QT ? L : AT_QT;
+  const size_t smem = attn_smem_floats(L, QT) * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(window_attn_kernel<T>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(L / QT, heads, B * (H / ws) * (W / ws));
+  window_attn_kernel<T><<<grid, AT_THREADS, smem, st>>>(
+      static_cast<const T*>(qkv), static_cast<const T*>(rel_bias),
+      static_cast<const T*>(mask), static_cast<const float*>(scale), static_cast<T*>(out),
+      H, W, C, ws, shift);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// dt_code: 0 = float32, 1 = bfloat16
+extern "C" int gemm_bias_act(const void* A, const void* W, const void* bias, void* out,
+                             int M, int N, int K, int dt_code, int out_f32, int act,
+                             void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dt_code == 1) {
+    dim3 grid((N + GB_N - 1) / GB_N, (M + GB_M - 1) / GB_M);
+    const bf16* a = static_cast<const bf16*>(A);
+    const bf16* w = static_cast<const bf16*>(W);
+    const bf16* b = static_cast<const bf16*>(bias);
+    if (out_f32) {
+      float* o = static_cast<float*>(out);
+      if (act) gemm_bf16_kernel<1, float><<<grid, G_THREADS, 0, st>>>(a, w, b, o, M, N, K);
+      else gemm_bf16_kernel<0, float><<<grid, G_THREADS, 0, st>>>(a, w, b, o, M, N, K);
+    } else {
+      bf16* o = static_cast<bf16*>(out);
+      if (act) gemm_bf16_kernel<1, bf16><<<grid, G_THREADS, 0, st>>>(a, w, b, o, M, N, K);
+      else gemm_bf16_kernel<0, bf16><<<grid, G_THREADS, 0, st>>>(a, w, b, o, M, N, K);
+    }
+  } else {
+    dim3 grid((N + FB - 1) / FB, (M + FB - 1) / FB);
+    const float* a = static_cast<const float*>(A);
+    const float* w = static_cast<const float*>(W);
+    const float* b = static_cast<const float*>(bias);
+    float* o = static_cast<float*>(out);
+    if (act) gemm_f32_kernel<1><<<grid, 256, 0, st>>>(a, w, b, o, M, N, K);
+    else gemm_f32_kernel<0><<<grid, 256, 0, st>>>(a, w, b, o, M, N, K);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ln_residual(const void* z, const void* res, const void* gamma, const void* beta,
+                           const void* dp, int dp_col, int rows_per_image, void* out_f32,
+                           void* out_dt, int M, int C, float eps, int dt_code, int res_f32,
+                           void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int rows_per_block = 256 / 32;
+  const int grid = (M + rows_per_block - 1) / rows_per_block;
+  const float* zf = static_cast<const float*>(z);
+  const float* d = static_cast<const float*>(dp);
+  float* of = static_cast<float*>(out_f32);
+  if (dt_code == 1) {
+    const bf16* g = static_cast<const bf16*>(gamma);
+    const bf16* bt = static_cast<const bf16*>(beta);
+    bf16* od = static_cast<bf16*>(out_dt);
+    if (res_f32)
+      ln_residual_kernel<float, bf16><<<grid, 256, 0, st>>>(
+          zf, static_cast<const float*>(res), g, bt, d, dp_col, rows_per_image, of, od, M, C, eps);
+    else
+      ln_residual_kernel<bf16, bf16><<<grid, 256, 0, st>>>(
+          zf, static_cast<const bf16*>(res), g, bt, d, dp_col, rows_per_image, of, od, M, C, eps);
+  } else {
+    ln_residual_kernel<float, float><<<grid, 256, 0, st>>>(
+        zf, static_cast<const float*>(res), static_cast<const float*>(gamma),
+        static_cast<const float*>(beta), d, dp_col, rows_per_image, of,
+        static_cast<float*>(out_dt), M, C, eps);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int swin_window_attn_fwd(const void* qkv, const void* rel_bias, const void* mask,
+                                    const void* scale, void* out, int B, int H, int W, int C,
+                                    int heads, int ws, int shift, int dt_code, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dt_code == 1)
+    return launch_attn<bf16>(qkv, rel_bias, mask, scale, out, B, H, W, C, heads, ws, shift, st);
+  return launch_attn<float>(qkv, rel_bias, mask, scale, out, B, H, W, C, heads, ws, shift, st);
+}

@@ -1,0 +1,85 @@
+"""The CUDA kernels of cs_vit_tpu_torch against their plain PyTorch versions.
+
+The kernel tests need a CUDA card and ``nvcc`` (the kernels are built from
+``cs_vit_tpu_torch/ops/csrc/`` at first use); each one decides inside the
+test whether a card is present and skips otherwise. Run them on the card:
+
+    python -m pytest --noconftest tests/test_torch_kernels.py -m gpu -q
+
+(``--noconftest``: tests/conftest.py sets up JAX, which the card's machine
+need not have.) The per-kernel cases run ``chip_smoke.kernel_checks``, the
+check ``chip_smoke.py`` makes, at the Swin-B-256 block geometries and the
+batches of ``chip_smoke.CHECK_BATCHES`` (so also marked ``slow``) with its
+stated tolerances (``chip_smoke.TOL``).
+This file imports no JAX.
+"""
+
+import pytest
+import torch
+
+import chip_smoke
+from cs_vit_tpu_torch.models.swinv2 import _shift_attn_mask
+from cs_vit_tpu_torch.ops import fused_block as fb
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.gpu
+@pytest.mark.slow
+@pytest.mark.parametrize("dname", ["bf16", "f32"])
+@pytest.mark.parametrize("geom", chip_smoke.GEOMS,
+                         ids=[f"stage{g[0]}_shift{g[5]}" for g in chip_smoke.GEOMS])
+def test_kernels_match_plain_versions(geom, dname):
+    """chip_smoke.py's phase-3 check at one geometry and dtype, every batch."""
+    _need_card()
+    for B in chip_smoke.CHECK_BATCHES:
+        fb.reset_launch_counts()
+        results = chip_smoke.kernel_checks(torch, fb, dname, geom, B)
+        bad = [r for r in results if not r[3] <= r[4]]
+        assert not bad, (B, bad)
+        # the single-kernel checks (3 GEMM, 1 attention, 2 LN), then one block
+        assert fb.launch_counts() == {"gemm_bias_act": 3 + 4, "ln_residual": 2 + 2,
+                                      "window_attention": 1 + 1, "fused_swin_block": 1}
+
+
+@pytest.mark.gpu
+def test_kernels_refuse_what_they_do_not_take():
+    _need_card()
+    a = torch.randn(64, 32, device="cuda", dtype=torch.bfloat16)
+    w = torch.randn(32, 20, device="cuda", dtype=torch.bfloat16)  # N not a multiple of 8
+    with pytest.raises(ValueError):
+        fb.gemm_bias_act(a, w, torch.zeros(20, device="cuda", dtype=torch.bfloat16))
+    with pytest.raises(ValueError):  # one tensor on the CPU
+        fb.gemm_bias_act(a, w[:, :16].contiguous(), torch.zeros(16, dtype=torch.bfloat16))
+    qkv = torch.randn(1, 8, 8, 3 * 64, device="cuda")  # head_dim 16
+    with pytest.raises(ValueError):
+        fb.window_attention(qkv, torch.zeros(4, 64, 64, device="cuda"),
+                            torch.ones(4, device="cuda"), window_size=8, num_heads=4)
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    """On CPU tensors each wrapper returns its plain version's result and
+    counts no launch."""
+    g = torch.Generator().manual_seed(0)
+    a, w, b = (torch.randn(8, 16, generator=g), torch.randn(16, 24, generator=g),
+               torch.randn(24, generator=g))
+    fb.reset_launch_counts()
+    assert torch.equal(fb.gemm_bias_act(a, w, b, act="gelu"),
+                       fb.gemm_bias_act_reference(a, w, b, act="gelu"))
+    z, res = torch.randn(8, 16, generator=g), torch.randn(8, 16, generator=g)
+    dp = torch.ones(2, 2)
+    ydt, y32 = fb.ln_residual(z, res, torch.ones(16), torch.zeros(16), dp, 0, 1e-5,
+                              torch.float32, keep_f32=True)
+    assert torch.equal(y32, fb.ln_residual_reference(z, res, torch.ones(16), torch.zeros(16),
+                                                     dp, 0, 1e-5, torch.float32)[0])
+    qkv = torch.randn(1, 8, 8, 48, generator=g)
+    kw = dict(window_size=4, num_heads=2, shift=2)
+    mask = torch.from_numpy(_shift_attn_mask(8, 8, 4, 2))
+    bias, scale = torch.rand(2, 16, 16, generator=g), torch.full((2,), 10.0)
+    assert torch.equal(fb.window_attention(qkv, bias, scale, mask, **kw),
+                       fb.window_attention_reference(qkv, bias, scale, mask, **kw))
+    assert all(v == 0 for v in fb.launch_counts().values())
