@@ -9,19 +9,28 @@ It builds the CUDA kernels from ``cs_vit_tpu_torch/ops/csrc/`` and then, in
 order, failing (non-zero exit, no result line) at the first phase that fails:
 
 1. prints the card (``nvidia-smi`` name and power limit), turns TF32 off;
-2. builds the kernels and prints the build time and the compiler's
-   register/spill report;
-3. holds each kernel, and the whole ``fused_swin_block``, against its plain
+2. builds the kernels (both sources at once) and prints the build time and
+   the compiler's register/spill report;
+3. holds each forward and backward kernel, the whole ``fused_swin_block``
+   and the whole block backward (``FusedSwinBlock``) against its plain
    PyTorch version at every Swin-B-256 block geometry (stages 0/1 with and
-   without shift, stage 2, stage 3 at L=64), at batch 1 and 8 (the serving
-   path's shapes) and 2, bf16 and f32;
+   without shift, stage 2, stage 3 at L=64), at batch 1, 2 and 8, bf16 and
+   f32;
 4. serves the flagship model (Swin-B-256 Poser, img 256, bf16, synthetic
    MANO, seeded random weights) through ``PoserSession`` at batch 1 and 8,
    checks the outputs, the kernel launch counts per forward, and the kernel
    path against the eager path on the card;
-5. times every kernel at the serving path's shapes (batch 8) beside its plain
-   version, one library call and its bound, and the serve latency at b1/b8;
-6. prints ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}`` as
+5. trains the same model in the spatial phase at batch 8
+   (``train.make_train_step``): f32 backbone grads of the kernel path
+   against the eager path under a backbone-only loss, and the bf16 step's
+   loss and grad norm against the eager path's, held to a measured floor;
+   TRAIN_STEPS bf16 steps on one batch whose loss must fall, with the
+   launch counts of one step and the step time; a NaN batch that must leave
+   the state bit-identical; a profiled step (device idle share);
+6. times every forward kernel at the serving path's shapes (batch 8) and
+   every backward kernel at the train step's, each beside its plain version,
+   one library call and its bound, and the serve latency at b1/b8;
+7. prints ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}`` as
    the last line.
 
 It imports nothing of JAX or of ``cs_vit_tpu``.
@@ -59,6 +68,25 @@ REPLACES = "cs_vit_tpu/ops/fused_block.py:738"
 # a differing f32 sum flips an output by at most a few bf16 ulps (2^-8); the
 # whole block chains seven such roundings.
 TOL = {"f32": {"kernel": 2e-4, "block": 5e-4}, "bf16": {"kernel": 1.6e-2, "block": 4e-2}}
+BWD_KERNEL_SOURCE = "cs_vit_tpu_torch/ops/csrc/fused_block_bwd.cu"
+BWD_REPLACES = "cs_vit_tpu/ops/fused_block.py:973"
+# spatial train step (Swin-B-256 Poser, b8): AdamW at the config's default lr,
+# constant; TRAIN_STEPS steps on one fixed batch, the last three of which must
+# average below TRAIN_FALL times the first three.
+TRAIN_LR, TRAIN_STEPS, TRAIN_FALL = 1e-4, 30, 0.9
+# f32 backbone grads under a backbone-only loss, kernel path vs eager path:
+# max |diff| / max |eager grad| per parameter (sum order only, through the 24
+# blocks' backward).
+TRAIN_GRAD_TOL = 1e-3
+# Whole step (loss and pre-clip grad_norm), kernel path vs eager path from
+# the same weights, batch and droppath draws. f32: relative to the eager
+# value (sum order only, amplified by the random-weight heads). bf16: each
+# path rounds at other points and the random-weight heads amplify the
+# backbone's bf16 noise (tokens ~5% of their largest magnitude off the f32
+# ones, on either path), so the kernel path's distance from the f32 eager
+# step is held to twice the eager bf16 path's distance plus TRAIN_BF16_SLACK
+# of the value.
+TRAIN_F32_TOL, TRAIN_BF16_SLACK = 1e-3, 0.05
 # served model, kernel path vs eager path on the card, same weights and inputs.
 # Backbone tokens (relative to their largest magnitude): f32 differs by sum
 # order only; bf16 rounds activations to 8 bits at 7 points in each of the 24
@@ -179,20 +207,108 @@ def kernel_checks(torch, fb, dname, geom, B=2):
     ]
 
 
+def bwd_kernel_checks(torch, fb, dname, geom, B=2):
+    """Every backward kernel, and the whole block backward through
+    ``FusedSwinBlock``, against its plain version at one block geometry and
+    batch B: [(kernel, what, max_abs, rel, tol)]."""
+    stage, res, C, heads, ws, shift, _ = geom
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dname]
+    f32 = torch.float32
+    tol = TOL[dname]
+    seed = stage * 10 + shift + 100 * B + 7
+    t = block_inputs(torch, B, res, C, heads, ws, shift, dtype, seed=seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+
+    def n(*shape, dt=f32):
+        return torch.randn(*shape, generator=gen).to(DEV, dt)
+
+    M, Ch = B * res * res, 4 * C
+    x2 = t["x"].reshape(M, C)
+    pairs = []
+    # LayerNorm-residual backward, with the cotangent in the compute dtype
+    # (LN2: the block's output grad) and in f32 (LN1: h1's grad)
+    z = n(M, C) * 3 + 0.5
+    for what, g, col in (("ln2", n(M, C, dt=dtype), 1), ("ln1", n(M, C), 0)):
+        got = fb.ln_residual_bwd(z, g, t["ln2_scale"], t["dp"], col, 1e-5)
+        want = fb.ln_residual_bwd_reference(z, g, t["ln2_scale"], t["dp"], col, 1e-5)
+        pairs += [("ln_residual_bwd", f"{what} {p}", a, b)
+                  for p, a, b in zip(("dz", "dgamma", "dbeta"), got, want)]
+    # the block's four input grads, each with its epilogue and output dtype
+    m1 = n(M, Ch, dt=dtype)
+    for what, dy, w, aux, epi, odt in (
+        ("mlp2 gelu'", n(M, C), t["w2"], m1, "gelu", f32),
+        ("mlp1 +g", n(M, Ch), t["w1"], n(M, C, dt=dtype), "add", f32),
+        ("proj", n(M, C), t["wproj"], None, "none", dtype),
+        ("qkv +h1b", n(M, 3 * C), t["wqkv"], n(M, C), "add", dtype),
+    ):
+        pairs.append(("gemm_dgrad", what, fb.gemm_dgrad(dy, w, aux, epi, odt),
+                      fb.gemm_dgrad_reference(dy, w, aux, epi, odt)))
+    # weight and bias grads over all M token rows
+    for what, a, dy in (("qkv", x2, n(M, 3 * C)), ("mlp1", x2, n(M, Ch)),
+                        ("mlp2", m1, n(M, C))):
+        got, want = fb.gemm_wgrad(a, dy), fb.gemm_wgrad_reference(a, dy)
+        pairs += [("gemm_wgrad", f"{what} {p}", a_, b_)
+                  for p, a_, b_ in zip(("dW", "db"), got, want)]
+    # attention backward
+    kw = dict(window_size=ws, num_heads=heads, shift=shift)
+    qkv4 = fb.gemm_bias_act_reference(x2, t["wqkv"], t["bqkv"]).reshape(B, res, res, 3 * C)
+    dout = n(B, res, res, C, dt=dtype)
+    ops = (qkv4, dout, t["rel_bias"], t["logit_scale"], t["mask"])
+    got = fb.window_attention_bwd(*ops, **kw)
+    want = fb.window_attention_bwd_reference(*ops, **kw)
+    pairs += [("swin_window_attn_bwd", p, a, b)
+              for p, a, b in zip(("dqkv", "d rel_bias", "d logit_scale"), got, want)]
+    # whole block: autograd through FusedSwinBlock vs block_backward_reference
+    # on rolled windows
+    args = [t[k] for k in fb.OPERANDS]
+    leaves = [v.clone().requires_grad_() for v in [t["x"]] + args]
+    y = fb.fused_swin_block(leaves[0], *leaves[1:], mask=t["mask"], droppath_keep=t["dp"],
+                            **dict(kw, eps=1e-5))
+    gy = n(B, res, res, C, dt=dtype)
+    grads = torch.autograd.grad(y, leaves, gy)
+
+    def roll(v, s):
+        return torch.roll(v, (s, s), (1, 2)) if shift else v
+
+    ref = fb.block_backward_reference(roll(gy, -shift), roll(t["x"], -shift), *args, t["dp"],
+                                      t["mask"], window_size=ws, num_heads=heads, eps=1e-5)
+    want = (roll(ref[0], shift),) + tuple(ref[1:1 + len(args)])
+    pairs += [("FusedSwinBlock", f"d{name}", a, b)
+              for name, a, b in zip(("x",) + fb.OPERANDS, grads, want)]
+    sync(torch)
+    return [
+        (name, what, *rel_err(got, want), tol["block" if name == "FusedSwinBlock" else "kernel"])
+        for name, what, got, want in pairs
+    ]
+
+
 def check_kernels(torch, fb):
-    """Phase 3: kernel_checks at every geometry and batch, bf16 and f32;
-    fails on the first disagreement. Returns each kernel's worst bf16 max_abs."""
-    worst = {"gemm_bias_act": 0.0, "ln_residual": 0.0, "swin_window_attn_fwd": 0.0}
+    """Phase 3: kernel_checks and bwd_kernel_checks at every geometry and
+    batch, bf16 and f32; one line per geometry, batch and dtype with each
+    kernel's worst rel; fails on the first disagreement. Returns each
+    kernel's worst bf16 max_abs."""
+    worst = {k: 0.0 for k in ("gemm_bias_act", "ln_residual", "swin_window_attn_fwd",
+                              "gemm_dgrad", "gemm_wgrad", "ln_residual_bwd",
+                              "swin_window_attn_bwd")}
+    n_checks = 0
     for dname in ("bf16", "f32"):
         for geom, B in ((g, B) for g in GEOMS for B in CHECK_BATCHES):
-            for name, what, err, rel, tol in kernel_checks(torch, fb, dname, geom, B):
-                status = "ok" if rel <= tol else "FAIL"
-                print(f"check {dname} b{B} stage{geom[0]} shift{geom[5]} {name:21s} {what:13s} "
-                      f"max_abs={err:.3e} rel={rel:.3e} tol={tol:.1e} {status}")
-                if status != "ok":
+            results = (kernel_checks(torch, fb, dname, geom, B)
+                       + bwd_kernel_checks(torch, fb, dname, geom, B))
+            n_checks += len(results)
+            where = f"{dname} b{B} stage{geom[0]} shift{geom[5]}"
+            by_kernel = {}
+            for name, what, err, rel, tol in results:
+                if not rel <= tol:
+                    print(f"check {where} {name} {what}: max_abs={err:.3e} rel={rel:.3e} "
+                          f"tol={tol:.1e} FAIL")
                     fail(f"{name} ({what}) disagrees with its plain version")
+                by_kernel[name] = max(by_kernel.get(name, (0.0, tol)), (rel, tol))
                 if dname == "bf16" and name in worst:
                     worst[name] = max(worst[name], err)
+            print(f"check {where} worst rel/tol: " + ", ".join(
+                f"{k} {r:.2e}/{t:.0e}" for k, (r, t) in by_kernel.items()))
+    print(f"check: {n_checks} kernel and block checks ok")
     return worst
 
 
@@ -372,7 +488,7 @@ def serve(torch, fb):
             super().__init__()
             self.t = t
 
-        def forward(self, x):
+        def forward(self, x, generator=None):
             return self.t
 
     def head_mm(t):
@@ -409,6 +525,332 @@ def serve(torch, fb):
     return s1, s8, request, counts, forwards
 
 
+def train_batch(torch, B, seed):
+    """A seeded spatial-phase batch of B crops on the card (T=1)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    jc = rng.normal(scale=20.0, size=(B, 1, 21, 3)).astype(np.float32)
+    jc[..., 2] += 400.0
+    x0 = rng.uniform(40, 200, size=(B, 1, 2)).astype(np.float32)
+    side = rng.uniform(120, 300, size=(B, 1, 1)).astype(np.float32)
+    batch = {
+        "patches": rng.uniform(size=(B, 1, IMG, IMG, 3)).astype(np.float32),
+        "square_bboxes": np.concatenate([x0, x0 + side], -1),
+        "timestamp": np.zeros((B, 1), np.float32),
+        "focal": rng.uniform(500, 700, size=(B, 1, 2)).astype(np.float32),
+        "princpt": rng.uniform(200, 320, size=(B, 1, 2)).astype(np.float32),
+        "joint_cam": jc,
+        "joint_valid": np.ones((B, 1, 21), np.float32),
+        "mano_shape": rng.normal(scale=0.5, size=(B, 1, 10)).astype(np.float32),
+    }
+    return {k: torch.from_numpy(v).to(DEV) for k, v in batch.items()}
+
+
+def train_model(torch, seed=0):
+    """The flagship Poser with seeded random f32 weights on the card, in the
+    spatial phase's configuration (kernel path)."""
+    from cs_vit_tpu_torch.cli.common import build_model
+    from cs_vit_tpu_torch.config import FinetuneConfig
+    from cs_vit_tpu_torch.models import init_poser_weights
+
+    cfg = FinetuneConfig(exp="chip_smoke", backbone=BACKBONE, img_size=IMG, phase="spatial",
+                         attention_impl="fused")
+    model = build_model(cfg)
+    init_poser_weights(model, seed)
+    return model.to(DEV)
+
+
+def with_impl(model, impl):
+    import copy
+
+    out = copy.deepcopy(model)
+    out.backbone.set_attention_impl(impl)
+    return out
+
+
+def new_step(torch, model, compute_dtype):
+    from cs_vit_tpu_torch.train import TrainState, build_optimizer, make_train_step
+
+    state = TrainState.create(model, build_optimizer(model, "spatial", TRAIN_LR))
+    return state, make_train_step(model, state.optimizer, "spatial", compute_dtype=compute_dtype)
+
+
+def check_train(torch, fb, model, B=8):
+    """Phase 6: the spatial step's grads and loss, kernel path vs eager path
+    from the same weights, batch and droppath draws."""
+    # (1) backbone grads, f32, under a backbone-only loss
+    x = train_batch(torch, B, seed=1)["patches"][:, 0]
+    x = (x - model.img_mean) / model.img_std
+    proj, grads = None, {}
+    for impl in ("fused", "eager"):
+        m = with_impl(model, impl)
+        params = dict(m.backbone.named_parameters())
+        fb.reset_launch_counts()
+        tokens = m.backbone(x, torch.Generator(device=DEV).manual_seed(3))
+        if proj is None:
+            gen = torch.Generator().manual_seed(2)
+            proj = (torch.randn(tokens.shape, generator=gen) / tokens.shape[1] ** 0.5).to(DEV)
+        g = torch.autograd.grad((tokens.float() * proj).sum(), list(params.values()))
+        sync(torch)
+        if (DEV == "cuda" and impl == "fused"
+                and fb.launch_counts()["FusedSwinBlock"] != sum(m.backbone.config.depths)):
+            fail(f"backbone grads ran {fb.launch_counts()['FusedSwinBlock']} block backwards "
+                 "through the kernels")
+        grads[impl] = dict(zip(params, g))
+        del m
+    rows = sorted(((rel_err(grads["fused"][n], grads["eager"][n])[1], n) for n in grads["eager"]),
+                  reverse=True)
+    print(f"train: f32 backbone grads, kernel path vs eager path, {len(rows)} parameters; "
+          f"worst rel (max|diff| / max|eager grad|): "
+          + ", ".join(f"{n} {r:.3e}" for r, n in rows[:5]))
+    if not rows[0][0] <= TRAIN_GRAD_TOL:
+        fail(f"backbone grad {rows[0][1]} of the kernel path disagrees with the eager path "
+             f"(rel {rows[0][0]:.3e} > {TRAIN_GRAD_TOL:.0e})")
+    del grads
+
+    # (2) the whole step, f32 and bf16: kernel path vs eager path
+    batch = train_batch(torch, B, seed=4)
+    res = {}
+    for impl in ("fused", "eager"):
+        for dname, cdt in (("f32", None), ("bf16", torch.bfloat16)):
+            m = with_impl(model, impl)
+            state, step = new_step(torch, m, cdt)
+            state, met = step(state, batch, torch.Generator(device=DEV).manual_seed(5))
+            res[impl, dname] = (float(met["loss"]), float(met["grad_norm"]))
+            if state.step != 1 or not all(math.isfinite(v) for v in res[impl, dname]):
+                fail(f"{impl} {dname} step: step {state.step}, loss/grad_norm {res[impl, dname]}")
+            print(f"train: {impl} {dname} step: loss {res[impl, dname][0]:.6f} "
+                  f"grad_norm {res[impl, dname][1]:.6f}")
+            del m, state, step
+    for i, what in enumerate(("loss", "grad_norm")):
+        truth = res["eager", "f32"][i]
+        err = abs(res["fused", "f32"][i] - truth)
+        ok = err <= TRAIN_F32_TOL * abs(truth)
+        print(f"train: f32 {what} kernel path vs eager path: |diff| {err:.6f} "
+              f"(rel {err / abs(truth):.3e}, tol {TRAIN_F32_TOL:.0e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"f32 step {what} of the kernel path disagrees with the eager path")
+        floor = abs(res["eager", "bf16"][i] - truth)
+        err = abs(res["fused", "bf16"][i] - truth)
+        tol = 2 * floor + TRAIN_BF16_SLACK * abs(truth)
+        ok = err <= tol
+        print(f"train: bf16 {what}: kernel path's distance from the f32 eager step {err:.6f}, "
+              f"eager bf16 path's {floor:.6f}, tol {tol:.6f} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"bf16 step {what} of the kernel path is further from the f32 step than "
+                 "the eager bf16 path allows")
+
+
+def check_nan_skip(torch, state, step, batch):
+    """Phase 7: a batch with a NaN target leaves the state bit-identical."""
+    import copy
+
+    model, opt = state.model, state.optimizer
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    opt_before = copy.deepcopy(opt.state_dict())
+    steps = state.step
+    bad = dict(batch, joint_cam=batch["joint_cam"].clone())
+    bad["joint_cam"][0, 0, 0, 0] = float("nan")
+    state, met = step(state, bad, torch.Generator(device=DEV).manual_seed(6))
+    sync(torch)
+    after = opt.state_dict()
+    same = (all(torch.equal(v, before[k]) for k, v in model.state_dict().items())
+            and after["param_groups"] == opt_before["param_groups"]
+            and all(torch.equal(after["state"][i][k], v)
+                    for i, s in opt_before["state"].items() for k, v in s.items()))
+    print(f"train: NaN batch: skipped={float(met['skipped'])}, step {steps} -> {state.step}, "
+          f"parameters, BatchNorm statistics and AdamW state bit-identical: {same}")
+    if not (same and float(met["skipped"]) == 1.0 and state.step == steps):
+        fail("a NaN batch changed the train state")
+
+
+def train_curve(torch, fb, state, step, batch, n):
+    """Phase 8: n bf16 steps on one fixed batch, with the same droppath draws
+    in every step (one fixed objective); the loss must fall. Returns the step
+    times (ms) and the launch counts of the last step, and prints the device
+    memory that step holds above what stays resident (weights, AdamW state)."""
+    losses, times, counts = [], [], None
+    gen = torch.Generator(device=DEV)
+    for i in range(n):
+        gen.manual_seed(7)
+        sync(torch)
+        if i == n - 1:
+            fb.reset_launch_counts()
+            if DEV == "cuda":
+                resident = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, met = step(state, batch, gen)
+        sync(torch)
+        times.append((time.perf_counter() - t0) * 1e3)
+        if i == n - 1:
+            counts = fb.launch_counts()
+            if DEV == "cuda":
+                print(f"train: one step's peak device memory above the resident "
+                      f"{resident / 2**30:.2f} GiB: "
+                      f"{(torch.cuda.max_memory_allocated() - resident) / 2**30:.2f} GiB")
+        losses.append(float(met["loss"]))
+    print("train: loss curve " + " ".join(f"{v:.3f}" for v in losses))
+    first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+    if not (all(math.isfinite(v) for v in losses) and last < TRAIN_FALL * first):
+        fail(f"the loss did not fall: first three {first:.4f}, last three {last:.4f}")
+    print(f"train: mean loss of the first three steps {first:.4f}, of the last three {last:.4f}")
+    return times, counts
+
+
+def device_profile(torch, prof):
+    """(busy ms, kernel rows, op rows) of a torch.profiler run. Busy time sums
+    the device-side kernel events only: an op's or an autograd Function's
+    self device time repeats the time of the kernels it launched, and a
+    user annotation on the device timeline (the optimizer's step) spans
+    kernels that are events of their own. Op rows [(device ms, count,
+    name)] attribute the kernels to the op, Function or annotation that
+    launched them."""
+    from torch.autograd import DeviceType
+
+    kernels, ops = [], []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        if dev_us <= 0:
+            continue
+        on_device = (getattr(ev, "device_type", None) == DeviceType.CUDA
+                     and not getattr(ev, "is_user_annotation", False))
+        (kernels if on_device else ops).append((dev_us / 1e3, ev.count, ev.key))
+    kernels.sort(reverse=True)
+    ops.sort(reverse=True)
+    return sum(r[0] for r in kernels), kernels, ops
+
+
+def print_profile(tag, kernels, ops, n=12):
+    for ms, count, key in kernels[:n]:
+        print(f"{tag}: kernel {ms:9.3f} ms  x{count:4d}  {key[:90]}")
+    for ms, count, key in ops[:n]:
+        print(f"{tag}: launched by {ms:9.3f} ms  x{count:4d}  {key[:80]}")
+
+
+def profile_step(torch, state, step, batch, median_ms):
+    """Device busy time and idle share of one bf16 b8 step (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=DEV).manual_seed(8)
+    sync(torch)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch, gen)
+        sync(torch)
+        wall = (time.perf_counter() - t0) * 1e3
+    busy, kernels, ops = device_profile(torch, prof)
+    if busy == 0:
+        print("profile step: no device time recorded (not measured)")
+        return None
+    idle = max(0.0, 1 - busy / median_ms)
+    print(f"profile step: b8 step wall {wall:.3f} ms (profiled), device busy {busy:.3f} ms "
+          f"({sum(r[1] for r in kernels)} kernels), idle share against the unprofiled median "
+          f"{median_ms:.3f} ms: {idle:.3f}")
+    print_profile("profile step", kernels, ops, n=16)
+    return idle
+
+
+def time_bwd_kernels(torch, fb, F, B=8, iters=10):
+    """Phase 9: the backward kernels at a bf16 b8 step's shapes, per step
+    (summed over the 24 blocks), beside their plain versions, one library call
+    each (yardsticks: torch.matmul, autograd of F.layer_norm and of SDPA with
+    a float mask) and their bounds."""
+    bf, f32 = torch.bfloat16, torch.float32
+    names = ("gemm_dgrad", "gemm_wgrad", "ln_residual_bwd", "swin_window_attn_bwd")
+    tot = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes_s": 0.0, "flops_s": 0.0,
+               "bound_ms": 0.0} for k in names}
+
+    def ms_of(fn):
+        return cuda_ms(torch, fn, iters=iters, warmup=2)
+
+    def add(name, n_blocks, kern, plain, lib, nbytes, flops, peak, what):
+        ms, pl, lb = ms_of(kern), ms_of(plain), ms_of(lib)
+        tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+        print(f"timed bwd stage{stage} shift{shift} {name} {what}: {ms:.4f} ms, plain {pl:.4f} ms, "
+              f"library {lb:.4f} ms, bound {max(tb, tf):.4f} ms "
+              f"({'bytes' if tb >= tf else 'operations'}) x{n_blocks} blocks")
+        r = tot[name]
+        for k, v in (("ms", ms), ("plain_ms", pl), ("library_ms", lb), ("bytes_s", tb),
+                     ("flops_s", tf), ("bound_ms", max(tb, tf))):
+            r[k] += n_blocks * v
+
+    gen = torch.Generator().manual_seed(9)
+
+    def n(*shape, dt=f32):
+        return torch.randn(*shape, generator=gen).to(DEV, dt)
+
+    for stage, res, C, heads, ws, shift, n_blocks in GEOMS:
+        t = block_inputs(torch, B, res, C, heads, ws, shift, bf, seed=200 + stage)
+        M, L, Ch, hd = B * res * res, ws * ws, 4 * C, C // heads
+        dp = t["dp"]
+        # the two LayerNorm-residual backwards (LN2: bf16 cotangent; LN1: f32)
+        for what, g, gamma, col in (("ln2", n(M, C, dt=bf), t["ln2_scale"], 1),
+                                    ("ln1", n(M, C), t["ln1_scale"], 0)):
+            z = n(M, C)
+            zl = z.clone().requires_grad_()
+            wl = gamma.float().requires_grad_()
+            bl = torch.zeros(C, device=DEV, requires_grad=True)
+            yl = F.layer_norm(zl, (C,), wl, bl, 1e-5)
+            g32 = g.float()
+            nbytes = M * C * (4 + g.element_size() + 4) + C * 2 + B * 8 + 2 * C * 4
+            add("ln_residual_bwd", n_blocks,
+                lambda: fb.ln_residual_bwd(z, g, gamma, dp, col, 1e-5),
+                lambda: fb.ln_residual_bwd_reference(z, g, gamma, dp, col, 1e-5),
+                lambda: torch.autograd.grad(yl, (zl, wl, bl), g32, retain_graph=True),
+                nbytes, 12 * M * C, PEAK_FLOPS["f32"], f"M{M} C{C} {what}")
+        # the four weight grads: (activation, output grad)
+        for what, K, N in (("mlp2", Ch, C), ("mlp1", C, Ch), ("proj", C, C), ("qkv", C, 3 * C)):
+            a, dy = n(M, K, dt=bf), n(M, N)
+            dyb = dy.to(bf)
+            add("gemm_wgrad", n_blocks, lambda: fb.gemm_wgrad(a, dy),
+                lambda: fb.gemm_wgrad_reference(a, dy), lambda: torch.matmul(a.t(), dyb),
+                M * K * 2 + M * N * 4 + (K * N + N) * 4, 2 * M * N * K + M * N,
+                PEAK_FLOPS["bf16"], f"{what} M{M} K{K} N{N}")
+        # the four input grads: (what, out grad, weight [K,N], aux, epilogue, out dtype)
+        for what, N, K, aux, epi, odt in (
+            ("mlp2 gelu'", C, Ch, n(M, Ch, dt=bf), "gelu", f32),
+            ("mlp1 +g", Ch, C, n(M, C, dt=bf), "add", f32),
+            ("proj", C, C, None, "none", bf),
+            ("qkv +h1b", 3 * C, C, n(M, C), "add", bf),
+        ):
+            dy, w = n(M, N), n(K, N, dt=bf)
+            dyb = dy.to(bf)
+            nbytes = (M * N * 4 + K * N * 2 + M * K * (4 if odt == f32 else 2)
+                      + (0 if aux is None else aux.numel() * aux.element_size()))
+            add("gemm_dgrad", n_blocks,
+                lambda: fb.gemm_dgrad(dy, w, aux, epi, odt),
+                lambda: fb.gemm_dgrad_reference(dy, w, aux, epi, odt),
+                lambda: torch.matmul(dyb, w.t()),
+                nbytes, 2 * M * N * K, PEAK_FLOPS["bf16"], f"{what} M{M} K{K} N{N}")
+        # attention backward
+        qkv = n(B, res, res, 3 * C, dt=bf)
+        dout = n(B, res, res, C, dt=bf)
+        kw = dict(window_size=ws, num_heads=heads, shift=shift)
+        rb, ls, mk = t["rel_bias"], t["logit_scale"], t["mask"]
+        nW = (res // ws) ** 2
+        win = fb.window_partition(torch.roll(qkv, (-shift, -shift), (1, 2)) if shift else qkv, ws)
+        win = win.reshape(-1, L, 3, heads, hd).permute(2, 0, 3, 1, 4)
+        bias = rb.float()[None].expand(nW, heads, L, L)
+        if mk is not None:
+            bias = bias + mk.float()[:, None]
+        bias = bias[None].expand(B, nW, heads, L, L).reshape(B * nW, heads, L, L).to(bf).contiguous()
+        q, k, v = (win[i].contiguous().requires_grad_() for i in range(3))
+        o = F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=1.0)
+        do = fb.window_partition(dout, ws).reshape(-1, L, heads, hd).transpose(1, 2).contiguous()
+        nbytes = (M * 3 * C * 2 + M * C * 2 + heads * L * L * 2 + (nW * L * L * 2 if shift else 0)
+                  + heads * 4 + M * 3 * C * 4 + (heads * L * L + heads) * 4)
+        add("swin_window_attn_bwd", n_blocks,
+            lambda: fb.window_attention_bwd(qkv, dout, rb, ls, mk, **kw),
+            lambda: fb.window_attention_bwd_reference(qkv, dout, rb, ls, mk, **kw),
+            lambda: torch.autograd.grad(o, (q, k, v), do, retain_graph=True),
+            nbytes, 10 * L * hd * M * heads, PEAK_FLOPS["bf16"], f"B{B} L{L} heads{heads}")
+    return tot
+
+
 def serve_latency(torch, s1, s8, request):
     out = {}
     for name, sess in (("b1", s1), ("b8", s8)):
@@ -440,23 +882,15 @@ def profile_forward(torch, s8, request, latency_ms):
         s8.predict_crops(*req)
         sync(torch)
         wall = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0)
-        if dev_us > 0:
-            rows.append((dev_us / 1e3, ev.count, ev.key))
-    rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows)
+    busy, kernels, ops = device_profile(torch, prof)
     if busy == 0:
         print("profile: no device time recorded (not measured)")
         return
     print(f"profile: b8 forward wall {wall:.3f} ms, device busy {busy:.3f} ms "
-          f"(idle share {max(0.0, 1 - busy / wall):.3f}; against the unprofiled median "
-          f"{latency_ms:.3f} ms: {max(0.0, 1 - busy / latency_ms):.3f})")
-    for ms, count, key in rows[:15]:
-        print(f"profile: {ms:9.3f} ms  x{count:4d}  {key[:90]}")
+          f"({sum(r[1] for r in kernels)} kernels; idle share {max(0.0, 1 - busy / wall):.3f}; "
+          f"against the unprofiled median {latency_ms:.3f} ms: "
+          f"{max(0.0, 1 - busy / latency_ms):.3f})")
+    print_profile("profile", kernels, ops)
 
 
 def main() -> int:
@@ -489,23 +923,57 @@ def main() -> int:
 
     worst = check_kernels(torch, fb)
     s1, s8, request, counts, forwards = serve(torch, fb)
+
+    model = train_model(torch)
+    check_train(torch, fb, model)
+    batch = train_batch(torch, 8, seed=10)
+    state, step = new_step(torch, model, torch.bfloat16)
+    times, train_counts = train_curve(torch, fb, state, step, batch, TRAIN_STEPS)
+    check_nan_skip(torch, state, step, batch)
+    depth = sum(model.backbone.config.depths)
+    expect = {"FusedSwinBlock": depth, "gemm_dgrad": 4 * depth, "gemm_wgrad": 4 * depth,
+              "ln_residual_bwd": 2 * depth, "window_attention_bwd": depth,
+              "fused_swin_block": depth, "gemm_bias_act": 5 * depth,
+              "ln_residual": 2 * depth, "window_attention": depth}
+    print(f"train: launches in one step {json.dumps(train_counts)}")
+    for name, per in expect.items():
+        if train_counts[name] != per:
+            fail(f"{name}: {train_counts[name]} launches in one train step, expected {per}")
+    step_ms = statistics.median(times[3:])
+    print(f"train_step_ms_b8 {step_ms:.3f} (min {min(times[3:]):.3f}, "
+          f"{len(times) - 3} steps after 3 of warm-up)")
+    print(f"train_crops_per_s_b8 {8e3 / step_ms:.1f}")
+    profile_step(torch, state, step, batch, step_ms)
+    del model, state, step, batch
+
     tot = time_kernels(torch, fb, F)
+    tot.update(time_bwd_kernels(torch, fb, F))
     lat = serve_latency(torch, s1, s8, request)
     print(f"serve_b1_ms {lat['b1']:.3f} (min {lat['b1_min']:.3f})")
     print(f"serve_b8_ms {lat['b8']:.3f} (min {lat['b8_min']:.3f})")
     print(f"crops_per_s_b8 {lat['crops_per_s_b8']:.1f}")
     profile_forward(torch, s8, request, lat["b8"])
 
-    launch_key = {"gemm_bias_act": "gemm_bias_act", "ln_residual": "ln_residual",
-                  "swin_window_attn_fwd": "window_attention"}
+    # launches: the forward kernels' from the serving run, the backward
+    # kernels' from one train step
+    launches = {"gemm_bias_act": counts["gemm_bias_act"], "ln_residual": counts["ln_residual"],
+                "swin_window_attn_fwd": counts["window_attention"],
+                "gemm_dgrad": train_counts["gemm_dgrad"],
+                "gemm_wgrad": train_counts["gemm_wgrad"],
+                "ln_residual_bwd": train_counts["ln_residual_bwd"],
+                "swin_window_attn_bwd": train_counts["window_attention_bwd"]}
     kernels = []
     for name, r in tot.items():
-        print(f"kernel {name}: per b8 forward {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+        fwd = name in ("gemm_bias_act", "ln_residual", "swin_window_attn_fwd")
+        print(f"kernel {name}: per {'b8 forward' if fwd else 'b8 train step'} {r['ms']:.3f} ms, "
+              f"plain {r['plain_ms']:.3f} ms, "
               f"library {r['library_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
               f"(bytes {r['bytes_s']:.4f} ms, operations {r['flops_s']:.4f} ms)")
         kernels.append({
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE, "replaces": REPLACES,
-            "launches": counts[launch_key[name]], "max_abs_err": worst[name],
+            "name": name, "route": "cuda",
+            "source": KERNEL_SOURCE if fwd else BWD_KERNEL_SOURCE,
+            "replaces": REPLACES if fwd else BWD_REPLACES,
+            "launches": launches[name], "max_abs_err": worst[name],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "bytes" if r["bytes_s"] >= r["flops_s"] else "operations",
             "library_ms": r["library_ms"],

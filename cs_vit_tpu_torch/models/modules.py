@@ -50,22 +50,33 @@ class LayerNorm(nn.LayerNorm):
 
 
 class TorchBatchNorm(nn.BatchNorm1d):
-    """BatchNorm1d over the last axis of a [..., C] input, inference only.
+    """BatchNorm1d over the last axis of a [..., C] input.
 
-    Running statistics are f32 buffers; the affine runs in f32 and the output
-    keeps the input dtype. Batch statistics (the training mode) belong to the
-    train-step slice of the port and are refused here.
+    The mode is the ``train`` argument, which the Poser sets from the phase
+    as the JAX package does; ``nn.Module.training`` plays no part. With
+    ``train=True`` the statistics are those of the batch, over every axis but
+    the last, in f32: the biased variance normalises, and the running
+    statistics move by momentum 0.1 (torch convention) towards the batch mean
+    and the unbiased variance. The update writes into the running-statistic
+    buffers in place, without autograd; a train step that may discard it
+    hands the module copies of those buffers. Running statistics are f32
+    buffers; the affine runs in f32 and the output keeps the input dtype.
     """
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "TorchBatchNorm runs with running statistics only; call .eval()"
-            )
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         xf = x.float()
-        y = (xf - self.running_mean.float()) * torch.rsqrt(
-            self.running_var.float() + self.eps
-        )
+        if train:
+            axes = tuple(range(x.dim() - 1))
+            n = xf.numel() // xf.shape[-1]
+            mean = xf.mean(axes)
+            var = ((xf - mean) ** 2).mean(axes)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1 - m).add_(m * mean)
+                self.running_var.mul_(1 - m).add_(m * (var * (n / max(n - 1.0, 1.0))))
+        else:
+            mean, var = self.running_mean.float(), self.running_var.float()
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
         y = y * self.weight.float() + self.bias.float()
         return y.to(x.dtype)
 
@@ -122,10 +133,10 @@ class EncoderBlock(nn.Module):
         self.norm1 = TorchBatchNorm(dim)
         self.norm2 = TorchBatchNorm(dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.norm1(x)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        y = self.norm1(x, train)
         x = x + self.attn(y, y)
-        return x + self.ffn(self.norm2(x))
+        return x + self.ffn(self.norm2(x, train))
 
 
 class DecoderBlock(nn.Module):
@@ -138,11 +149,11 @@ class DecoderBlock(nn.Module):
         self.norm2 = TorchBatchNorm(dim)
         self.norm3 = TorchBatchNorm(dim)
 
-    def forward(self, x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
-        y = self.norm1(x)
+    def forward(self, x: torch.Tensor, ref: torch.Tensor, train: bool = False) -> torch.Tensor:
+        y = self.norm1(x, train)
         x = x + self.self_atten(y, y)
-        x = x + self.cross_atten(self.norm2(x), ref)
-        return x + self.ffn(self.norm3(x))
+        x = x + self.cross_atten(self.norm2(x, train), ref)
+        return x + self.ffn(self.norm3(x, train))
 
 
 class PositionalEncoding(nn.Module):

@@ -1,10 +1,20 @@
-"""Poser: camera-space MANO hand poser on a SwinV2 backbone, inference path.
+"""Poser: camera-space MANO hand poser on a SwinV2 backbone.
 
-Port of ``cs_vit_tpu/models/poser.py`` for ``phase="inference"``: ImageNet
-normalisation, the SwinV2 backbone, the dense perspective ray grid and its
-encoder, the decoder-type spatial encoder, the temporal encoders in ``"full"``
-mode (they run at T=1 too), the pose/shape/root heads, 6D -> axis-angle and
-MANO FK to camera-space joints in mm.
+Port of ``cs_vit_tpu/models/poser.py``: ImageNet normalisation, the SwinV2
+backbone, the dense perspective ray grid and its encoder, the decoder-type
+spatial encoder, the temporal encoders in ``"full"`` mode (they run at T=1
+too), the pose/shape/root heads, 6D -> axis-angle and MANO FK to
+camera-space joints in mm; :meth:`Poser.forward` adds the training losses
+(:meth:`Poser.criterion`).
+
+The phase is an argument, as in the JAX package, not module state:
+``"spatial"`` runs the backbone with droppath (drawn from the
+``torch.Generator`` passed in), the perspective encoder and the spatial
+encoder with BatchNorm batch statistics, and skips the temporal encoders;
+``"temporal"`` cuts the gradient above the temporal encoders and runs their
+BatchNorms on batch statistics; ``"inference"`` uses running statistics and
+no droppath, whatever ``nn.Module.training`` says.
+:func:`phase_trainable_params` gives the parameters each phase trains.
 
 Module names follow the reference state dict (``backbone.*`` in HF Swinv2
 names, ``perspective_mlp.layer.N``, ``spatial_encoder.layers.N.*``,
@@ -19,18 +29,20 @@ f32 rays) is cast to the patch dtype before it decorates the queries.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from ..constants import IMAGENET_MEAN, IMAGENET_STD, TARGET_JOINTS_CONNECTION
-from ..core.geometry import matrix_to_axis_angle, rotation_6d_to_matrix
+from ..core.geometry import matrix_to_axis_angle, rotation_6d_to_matrix, safe_norm
 from ..core.joints import mean_connection_length
 from ..mano.layer import ManoLayer
 from .modules import DecoderBlock, EncoderBlock, Linear, PositionalEncoding, TorchBatchNorm
 from .swinv2 import SwinV2, SwinV2Config, swinv2_base_256, swinv2_tiny_256
+
+PHASES = ("spatial", "temporal", "inference")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,8 +124,11 @@ class PerspectiveEncoder(nn.Module):
             layers += [TorchBatchNorm(embed_dim), Linear(embed_dim, embed_dim), nn.ReLU()]
         self.layer = nn.Sequential(*layers, Linear(embed_dim, embed_dim))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.layer(self.proj(x))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        y = self.proj(x)
+        for layer in self.layer:
+            y = layer(y, train) if isinstance(layer, TorchBatchNorm) else layer(y)
+        return y
 
 
 class SpatialEncoder(nn.Module):
@@ -127,10 +142,10 @@ class SpatialEncoder(nn.Module):
             DecoderBlock(embed_dim, num_heads, compat_scale) for _ in range(num_layer)
         )
 
-    def forward(self, x: torch.Tensor, ctx: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, ctx: torch.Tensor, train: bool = False) -> torch.Tensor:
         y = self.pe_spatial(x)
         for layer in self.layers:
-            y = layer(y, ctx)
+            y = layer(y, ctx, train)
         return y
 
 
@@ -147,10 +162,10 @@ class TemporalEncoder(nn.Module):
         )
         self.zero_conv = Linear(embed_dim, embed_dim, bias=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         y = self.pe_temporal(x)
         for layer in self.layers:
-            y = layer(y)
+            y = layer(y, train)
         return self.zero_conv(y)
 
 
@@ -174,8 +189,16 @@ def sample_persp_dir_vec(
     return d3[..., :2]
 
 
+def derivative(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Central finite difference along `dim` (needs at least 3 frames)."""
+    n = x.shape[dim]
+    if n < 3:
+        raise ValueError("derivative needs >=3 frames along the time axis")
+    return (x.narrow(dim, 2, n - 2) - x.narrow(dim, 0, n - 2)) / 2.0
+
+
 class Poser(nn.Module):
-    """Camera-space hand poser (inference)."""
+    """Camera-space hand poser."""
 
     def __init__(self, config: PoserConfig, mano: ManoLayer, j_regressor: np.ndarray):
         super().__init__()
@@ -206,23 +229,35 @@ class Poser(nn.Module):
         self,
         imgs: torch.Tensor,       # [B,T,H,W,3] in [0,1]
         persp_vec: torch.Tensor,  # [B,T,p,q,2]
+        phase: str = "inference",
+        generator: Optional[torch.Generator] = None,
     ):
-        """Images -> (pose_aa [B,T,16,3], shape [B,T,10], root_norm [B,T,3])."""
+        """Images -> (pose_aa [B,T,16,3], shape [B,T,10], root_norm [B,T,3]).
+        `generator` draws the backbone's droppath in the spatial phase."""
+        if phase not in PHASES:
+            raise ValueError(f"phase must be one of {PHASES}, got {phase!r}")
         cfg = self.config
         B, T = imgs.shape[:2]
+        spatial_train = phase == "spatial"
         x = imgs.reshape((B * T,) + tuple(imgs.shape[2:]))
         # f32 statistics, activation dtype kept (f32 constants must not promote)
         x = ((x.float() - self.img_mean) / self.img_std).to(imgs.dtype)
-        patches = self.backbone(x)                                       # [BT,P,D]
+        patches = self.backbone(x, generator if spatial_train else None)  # [BT,P,D]
 
-        persp_bias = self.perspective_mlp(persp_vec.reshape(B * T, -1)).to(patches.dtype)
+        persp_bias = self.perspective_mlp(
+            persp_vec.reshape(B * T, -1), spatial_train).to(patches.dtype)
         query = self.query_token[None].expand(B * T, -1, -1) + persp_bias[:, None]
-        fused = self.spatial_encoder(query, patches)                     # [BT,3,D]
+        fused = self.spatial_encoder(query, patches, spatial_train)     # [BT,3,D]
+        if phase == "temporal":
+            fused = fused.detach()  # only the temporal encoders train
 
         q = fused.reshape(B, T, 3, -1).permute(2, 0, 1, 3)
-        pose_q = q[0] + self.pose_temporal_encoder(q[0])
-        shape_q = q[1] + self.shape_temporal_encoder(q[1])
-        root_q = q[2] + self.root_temporal_encoder(q[2])
+        pose_q, shape_q, root_q = q[0], q[1], q[2]
+        if phase != "spatial":
+            temporal_train = phase == "temporal"
+            pose_q = pose_q + self.pose_temporal_encoder(pose_q, temporal_train)
+            shape_q = shape_q + self.shape_temporal_encoder(shape_q, temporal_train)
+            root_q = root_q + self.root_temporal_encoder(root_q, temporal_train)
 
         pose_6d = self.pose_decoder(pose_q).reshape(B, T, cfg.num_pose_query, 6)
         pose_aa = matrix_to_axis_angle(rotation_6d_to_matrix(pose_6d))
@@ -256,11 +291,15 @@ class Poser(nn.Module):
         timestamp: torch.Tensor,      # [B,T] ms (unused by the "full" temporal mode)
         focal: torch.Tensor,          # [B,T,2]
         princpt: torch.Tensor,        # [B,T,2]
+        phase: str = "inference",
+        generator: Optional[torch.Generator] = None,
     ) -> Dict[str, torch.Tensor]:
-        """Public inference API: ``Poser.predict(..., phase="inference")``."""
+        """Public inference API (``phase="inference"``); the train step calls
+        it with its phase."""
         del timestamp
         directions = sample_persp_dir_vec(16, square_bboxes, focal, princpt)
-        pose_aa, shape, root_transl_norm = self.decode_pose(img_tensor, directions)
+        pose_aa, shape, root_transl_norm = self.decode_pose(
+            img_tensor, directions, phase, generator)
         joint_cam, verts_cam, root_transl = self.pose_fk(pose_aa, shape, root_transl_norm)
         return {
             "joint_cam": joint_cam,
@@ -270,6 +309,66 @@ class Poser(nn.Module):
             "root_transl_norm": root_transl_norm,
             "root_transl": root_transl,
         }
+
+    def criterion(
+        self, predict: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor], phase: str,
+    ):
+        """Joint/shape losses and, in the temporal phase, the smoothness term
+        (``criterion`` of the JAX Poser). Returns (loss, logs)."""
+        pj, gj, valid = predict["joint_cam"], batch["joint_cam"], batch["joint_valid"]
+        loss_joint_cam = torch.mean(safe_norm(pj - gj) * valid)
+        loss_joint_rel = torch.mean(
+            safe_norm((pj - pj[:, :, :1]) - (gj - gj[:, :, :1])) * valid)
+        loss_shape = torch.mean(torch.abs(predict["shape"] - batch["mano_shape"]))
+        if phase == "temporal":
+            vel_p = derivative(pj, 1)
+            vel_g = derivative(gj, 1)
+            loss_vel = torch.mean(safe_norm(vel_p - vel_g))
+            loss_accel = torch.mean(safe_norm(derivative(vel_p, 1) - derivative(vel_g, 1)))
+            loss_temporal = 1e-2 * (loss_vel + loss_accel)
+        else:
+            loss_vel = loss_accel = loss_temporal = loss_joint_cam.new_zeros(())
+        logs = {"cam": loss_joint_cam, "rel": loss_joint_rel, "shape": loss_shape,
+                "loss_vel": loss_vel, "loss_accel": loss_accel}
+        return loss_joint_cam + loss_joint_rel + loss_shape + loss_temporal, logs
+
+    def forward(
+        self, batch: Dict[str, torch.Tensor], phase: str = "spatial",
+        generator: Optional[torch.Generator] = None,
+    ) -> Dict:
+        """Training forward: predict, then the losses. Returns ``{"loss",
+        "logs": {"scalar": ...}, "predict"}`` as the JAX ``Poser.__call__``."""
+        predict = self.predict(
+            batch["patches"], batch["square_bboxes"], batch["timestamp"], batch["focal"],
+            batch["princpt"], phase=phase, generator=generator,
+        )
+        loss, logs = self.criterion(predict, batch, phase)
+        return {
+            "loss": loss,
+            "logs": {"scalar": {
+                "total": loss,
+                "origin": {"origin": loss, **logs},
+                "trans": {"trans": loss.new_zeros(())},
+            }},
+            "predict": predict,
+        }
+
+
+_PHASE_TRAINED = {
+    "spatial": ("backbone", "perspective_mlp", "spatial_encoder",
+                "pose_decoder", "shape_decoder", "root_decoder", "query_token"),
+    "temporal": ("pose_temporal_encoder", "shape_temporal_encoder", "root_temporal_encoder"),
+    "inference": (),
+}
+
+
+def phase_trainable_params(model: Poser, phase: str) -> List[Tuple[str, nn.Parameter]]:
+    """(name, parameter) of every parameter `phase` trains, by top-level
+    submodule as ``phase_trainable_mask`` of the JAX package marks them."""
+    if phase not in PHASES:
+        raise ValueError(f"phase must be one of {PHASES}, got {phase!r}")
+    trained = _PHASE_TRAINED[phase]
+    return [(n, p) for n, p in model.named_parameters() if n.split(".", 1)[0] in trained]
 
 
 @torch.no_grad()

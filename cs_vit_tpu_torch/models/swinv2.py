@@ -13,8 +13,15 @@ package. SwinV2 semantics kept:
 
 ``SwinV2Block`` runs one of two implementations: ``"eager"`` (the JAX
 package's XLA path, op for op) or ``"fused"`` (:func:`fused_swin_block`,
-the CUDA kernels on CUDA tensors). ``"auto"`` picks ``"fused"`` for CUDA
-tensors and ``"eager"`` for CPU tensors.
+the CUDA kernels on CUDA tensors, forward and backward). ``"auto"`` picks
+``"fused"`` for CUDA tensors and ``"eager"`` for CPU tensors.
+
+Stochastic depth: block i of n drops its two residual branches per image with
+rate ``linspace(0, drop_path_rate, n)[i]``, drawing from the
+``torch.Generator`` handed to :meth:`SwinV2.forward` (none: deterministic).
+Both implementations take the same draws: a [B, 2] keep mask per block, which
+the eager path applies as ``x * mask / keep`` (the JAX ``DropPath``) and the
+fused path hands the kernels as keep-scales ``mask / keep``.
 """
 
 from __future__ import annotations
@@ -203,11 +210,12 @@ class Swinv2Attention(nn.Module):
 class SwinV2Block(nn.Module):
     def __init__(self, config: SwinV2Config, dim: int, resolution: Tuple[int, int],
                  num_heads: int, shift_size: int, pretrained_window_size: int = 0,
-                 attention_impl: str = "auto"):
+                 attention_impl: str = "auto", drop_path_rate: float = 0.0):
         super().__init__()
         if attention_impl not in ATTENTION_IMPLS:
             raise ValueError(f"attention_impl must be one of {ATTENTION_IMPLS}, got {attention_impl!r}")
         self.config, self.dim, self.resolution = config, dim, resolution
+        self.drop_path_rate = drop_path_rate
         self.num_heads, self.attention_impl = num_heads, attention_impl
         self.ws, self.sh = _compute_window_shift(resolution, config.window_size, shift_size)
         hidden = int(dim * config.mlp_ratio)
@@ -226,14 +234,26 @@ class SwinV2Block(nn.Module):
         # of a recursive parameters() walk on every forward
         self._fused_cache, self._own_modules = None, tuple(self.modules())
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: [B, H*W, C]."""
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x: [B, H*W, C]; `generator` draws the droppath mask (None or a
+        rate of 0: no droppath)."""
         impl = self.attention_impl
         if impl == "auto":
             impl = "fused" if x.device.type == "cuda" else "eager"
-        return self._fused(x) if impl == "fused" else self._eager(x)
+        keep = None
+        if generator is not None and self.drop_path_rate > 0.0:
+            p = torch.full((x.shape[0], 2), 1.0 - self.drop_path_rate, device=generator.device)
+            keep = torch.bernoulli(p, generator=generator).to(x.device)
+        return self._fused(x, keep) if impl == "fused" else self._eager(x, keep)
 
-    def _eager(self, x: torch.Tensor) -> torch.Tensor:
+    def _drop_path(self, branch: torch.Tensor, keep: Optional[torch.Tensor], col: int):
+        if keep is None:
+            return branch
+        mask = keep[:, col].to(branch.dtype).reshape(-1, *([1] * (branch.dim() - 1)))
+        return branch * mask / (1.0 - self.drop_path_rate)
+
+    def _eager(self, x: torch.Tensor, keep: Optional[torch.Tensor] = None) -> torch.Tensor:
         H, W = self.resolution
         B, _, C = x.shape
         ws, sh = self.ws, self.sh
@@ -247,9 +267,9 @@ class SwinV2Block(nn.Module):
         if sh > 0:
             x = torch.roll(x, shifts=(sh, sh), dims=(1, 2))
         x = x.reshape(B, H * W, C)
-        x = shortcut + self.layernorm_before(x)
+        x = shortcut + self._drop_path(self.layernorm_before(x), keep, 0)
         y = self.output(F.gelu(self.intermediate(x)))
-        return x + self.layernorm_after(y)
+        return x + self._drop_path(self.layernorm_after(y), keep, 1)
 
     def _fused_operands(self, dt: torch.dtype) -> dict:
         """The block's operands as :func:`fused_swin_block` takes them: [in, out]
@@ -295,13 +315,14 @@ class SwinV2Block(nn.Module):
             self._fused_cache = (key, self._fused_operands(dt))
         return self._fused_cache[1]
 
-    def _fused(self, x: torch.Tensor) -> torch.Tensor:
+    def _fused(self, x: torch.Tensor, keep: Optional[torch.Tensor] = None) -> torch.Tensor:
         H, W = self.resolution
         B, _, C = x.shape
         # uniform compute dtype = Linear promotion of (input, params)
         dt = torch.promote_types(x.dtype, self.attention.self.query.weight.dtype)
         y = fused_swin_block(
             x.reshape(B, H, W, C).to(dt), **self._cached_fused_operands(dt),
+            droppath_keep=None if keep is None else keep / (1.0 - self.drop_path_rate),
             window_size=self.ws, num_heads=self.num_heads,
             eps=self.config.layer_norm_eps, shift=self.sh,
         )
@@ -378,6 +399,7 @@ class SwinV2(nn.Module):
         cfg = self.config = config
         self.embeddings = _Embeddings(cfg)
         res, dim = cfg.image_size // cfg.patch_size, cfg.embed_dim
+        dpr = iter(np.linspace(0, cfg.drop_path_rate, sum(cfg.depths)).tolist())
         stages = []
         for s in range(cfg.num_layers):
             blocks = [
@@ -385,7 +407,7 @@ class SwinV2(nn.Module):
                     cfg, dim, (res, res), cfg.num_heads[s],
                     shift_size=0 if i % 2 == 0 else cfg.window_size // 2,
                     pretrained_window_size=cfg.pretrained_window_sizes[s],
-                    attention_impl=attention_impl,
+                    attention_impl=attention_impl, drop_path_rate=next(dpr),
                 )
                 for i in range(cfg.depths[s])
             ]
@@ -404,11 +426,14 @@ class SwinV2(nn.Module):
             for blk in stage.blocks:
                 blk.attention_impl = impl
 
-    def forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
+    def forward(self, pixel_values: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """`generator` draws the blocks' droppath masks in block order; None
+        runs deterministically (inference)."""
         x = self.embeddings(pixel_values)
         for stage in self.encoder.layers:
             for blk in stage.blocks:
-                x = blk(x)
+                x = blk(x, generator)
             if stage.downsample is not None:
                 x = stage.downsample(x)
         return self.layernorm(x)

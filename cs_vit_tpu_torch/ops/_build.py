@@ -21,7 +21,7 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("fused_block",)
+SOURCES = ("fused_block", "fused_block_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -93,8 +93,9 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, float]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library `name`, built first if needed."""
+    """The loaded library `name`; the first load builds every library of
+    ``SOURCES`` that is not built yet, all at once."""
     if name not in _loaded:
-        build([name])
+        build()
         _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return _loaded[name]

@@ -1,24 +1,35 @@
-"""SwinV2 block forward: CUDA kernels for Hopper and their plain versions.
+"""SwinV2 block forward and backward: CUDA kernels for Hopper and their plain
+versions.
 
-Port of the TPU kernel ``cs_vit_tpu/ops/fused_block.py:_pallas_forward``,
-which computes a whole SwinV2 block in one Pallas call. Here the block is
-seven launches of three hand-written kernels (``csrc/fused_block.cu``, whose
-header explains the split and what bounds each kernel):
+Port of the TPU kernels ``cs_vit_tpu/ops/fused_block.py:_pallas_forward``
+and ``:_pallas_backward``, which compute a whole SwinV2 block, and its VJP,
+in one Pallas call each. Here the forward is seven launches of three
+hand-written kernels (``csrc/fused_block.cu``) and the backward eleven
+launches of four (``csrc/fused_block_bwd.cu``, plus one forward GEMM); each
+source's header explains the split and what bounds each kernel:
 
 * :func:`gemm_bias_act` - ``act(A @ W + bias)`` with f32 accumulation
 * :func:`window_attention` - cosine window attention over the ``[B,H,W,3C]``
   qkv tensor, the cyclic shift and the window partition done by index
 * :func:`ln_residual` - ``res + dp * LN(z)`` with f32 statistics
+* :func:`gemm_dgrad` - ``round(dY) @ W^T`` with a GELU'-product or residual
+  epilogue
+* :func:`gemm_wgrad` - ``A^T @ round(dY)`` over all token rows, and the bias
+  grad ``sum(dY)``
+* :func:`ln_residual_bwd` - the LayerNorm-residual VJP and its scale/bias grads
+* :func:`window_attention_bwd` - the attention VJP: dqkv, d rel_bias, d scale
 
 Each wrapper launches its kernel for CUDA tensors and counts the launch in
 its ``launches`` attribute; for CPU tensors it runs the plain PyTorch version
 beside it (``*_reference``), which repeats the kernel's arithmetic. There is
 no fallback: a CUDA tensor the kernel does not take raises.
 
-:func:`block_reference` mirrors ``_block_reference`` of the JAX package (the
-whole block on pre-rolled windows), and :func:`fused_swin_block` keeps the
-JAX entry point's signature and layout: NHWC ``[B,H,W,C]`` activations,
-``[in, out]`` weights, the shift passed as ``shift=``.
+:func:`block_reference` and :func:`block_backward_reference` mirror
+``_block_reference`` and ``_bwd_kernel`` of the JAX package (the whole block
+on pre-rolled windows), and :func:`fused_swin_block` keeps the JAX entry
+point's signature and layout: NHWC ``[B,H,W,C]`` activations, ``[in, out]``
+weights, the shift passed as ``shift=``. When an input requires grad it runs
+through :class:`FusedSwinBlock`, whose backward is the kernels above.
 """
 
 from __future__ import annotations
@@ -37,22 +48,31 @@ _ATTN_HEAD_DIM = 32
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "gemm_bias_act": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "ln_residual": (_P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, ctypes.c_float, _I, _I, _P),
-    "swin_window_attn_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "fused_block": {
+        "gemm_bias_act": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        "ln_residual": (_P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, ctypes.c_float, _I, _I, _P),
+        "swin_window_attn_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    },
+    "fused_block_bwd": {
+        "gemm_dgrad": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+        "gemm_wgrad": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        "ln_residual_bwd": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, ctypes.c_float,
+                            _I, _I, _I, _I, _P),
+        "swin_window_attn_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                 _I, _P),
+    },
 }
-_lib_handle: Optional[ctypes.CDLL] = None
+_libs: dict = {}
 
 
-def _lib() -> ctypes.CDLL:
-    global _lib_handle
-    if _lib_handle is None:
-        lib = _build.load("fused_block")
-        for fn, argtypes in _SIGNATURES.items():
+def _lib(name: str = "fused_block") -> ctypes.CDLL:
+    if name not in _libs:
+        lib = _build.load(name)
+        for fn, argtypes in _SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
-        _lib_handle = lib
-    return _lib_handle
+        _libs[name] = lib
+    return _libs[name]
 
 
 def _check_launch(name: str, rc: int) -> None:
@@ -73,21 +93,32 @@ def _is_cpu(*tensors: torch.Tensor) -> bool:
     raise ValueError(f"tensors must all lie on the CPU or all on CUDA, got {sorted(devices)}")
 
 
+def _sm_count(t: torch.Tensor) -> int:
+    """Streaming multiprocessors of t's card: the split-K and LN-backward
+    grids aim at a few blocks on each."""
+    return torch.cuda.get_device_properties(t.device).multi_processor_count
+
+
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
 
 
+def _counted():
+    return (gemm_bias_act, ln_residual, window_attention, fused_swin_block,
+            gemm_dgrad, gemm_wgrad, ln_residual_bwd, window_attention_bwd, FusedSwinBlock)
+
+
 def reset_launch_counts() -> None:
-    for fn in (gemm_bias_act, ln_residual, window_attention, fused_swin_block):
+    for fn in _counted():
         fn.launches = 0
 
 
 def launch_counts() -> dict:
-    return {
-        fn.__name__: fn.launches
-        for fn in (gemm_bias_act, ln_residual, window_attention, fused_swin_block)
-    }
+    """Launches on CUDA tensors since the last reset, by wrapper;
+    ``fused_swin_block`` counts block forwards and ``FusedSwinBlock`` block
+    backwards."""
+    return {fn.__name__: fn.launches for fn in _counted()}
 
 
 # ---------------------------------------------------------------------------
@@ -316,8 +347,302 @@ def window_attention(
 
 
 # ---------------------------------------------------------------------------
+# backward kernels
+# ---------------------------------------------------------------------------
+
+
+def _gelu_grad(x: torch.Tensor) -> torch.Tensor:
+    """d/dx of exact-erf GELU: Phi(x) + x * phi(x) (``_gelu_grad`` of the
+    JAX kernel, with the exact erf)."""
+    return 0.5 * (1.0 + torch.erf(x * 0.7071067811865476)) + x * torch.exp(-0.5 * x * x) * 0.3989422804014327
+
+
+def gemm_dgrad_reference(
+    dy: torch.Tensor, w: torch.Tensor, aux: Optional[torch.Tensor] = None,
+    epi: str = "none", out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Plain version: dy rounded to w's dtype, f32 product with w^T, then
+    ``* gelu'(aux)`` ("gelu") or ``+ aux`` ("add"), one rounding to `out_dtype`."""
+    v = dy.to(w.dtype).float() @ w.float().t()
+    if epi == "gelu":
+        v = v * _gelu_grad(aux.float())
+    elif epi == "add":
+        v = v + aux.float()
+    return v.to(out_dtype or w.dtype)
+
+
+def gemm_dgrad(
+    dy: torch.Tensor, w: torch.Tensor, aux: Optional[torch.Tensor] = None,
+    epi: str = "none", out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """``epi(round(dy) @ w^T)``: the input grad of a GEMM ``y = a @ w``.
+
+    dy [M,N] f32 (rounded to w's dtype as it is read), w [K,N] in the
+    forward's [in, out] layout, bf16 or f32. ``epi="gelu"``: times gelu'(aux)
+    with aux [M,K] (the pre-GELU activation) in w's dtype; ``epi="add"``: plus
+    aux [M,K] in w's dtype or f32. Output [M,K] in `out_dtype`, w's dtype
+    or f32.
+    """
+    _require(epi in ("none", "gelu", "add"), f"epi must be 'none', 'gelu' or 'add', got {epi!r}")
+    _require((aux is None) == (epi == "none"), "aux is given exactly when epi is not 'none'")
+    dt = w.dtype
+    out_dtype = out_dtype or dt
+    tensors = (dy, w) + (() if aux is None else (aux,))
+    if _is_cpu(*tensors):
+        return gemm_dgrad_reference(dy, w, aux, epi, out_dtype)
+    M, N = dy.shape
+    K = w.shape[0]
+    _require(dt in _DT_CODE, f"gemm_dgrad takes bf16 or f32 weights, got {dt}")
+    _require(dy.dtype == torch.float32, "dy must be f32")
+    _require(w.shape == (K, N), "shapes must be dy[M,N], w[K,N]")
+    _require(out_dtype in (dt, torch.float32), "out_dtype must be w's dtype or f32")
+    if aux is not None:
+        _require(aux.shape == (M, K), "aux must be [M,K]")
+        allowed = (dt,) if epi == "gelu" else (dt, torch.float32)
+        _require(aux.dtype in allowed, f"aux must be in {allowed}")
+    _require(all(t.is_contiguous() for t in tensors), "gemm_dgrad needs contiguous operands")
+    _require(N % 8 == 0 and K % 8 == 0, "gemm_dgrad needs K, N multiples of 8")
+    out = torch.empty((M, K), dtype=out_dtype, device=dy.device)
+    rc = _lib("fused_block_bwd").gemm_dgrad(
+        dy.data_ptr(), w.data_ptr(), None if aux is None else aux.data_ptr(), out.data_ptr(),
+        M, N, K, _DT_CODE[dt], {"none": 0, "gelu": 1, "add": 2}[epi],
+        int(aux is not None and aux.dtype == torch.float32), int(out_dtype == torch.float32),
+        _stream(dy),
+    )
+    _check_launch("gemm_dgrad", rc)
+    gemm_dgrad.launches += 1
+    return out
+
+
+def gemm_wgrad_reference(a: torch.Tensor, dy: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version: (a^T @ dy rounded to a's dtype, column sums of f32 dy)."""
+    return a.float().t() @ dy.to(a.dtype).float(), dy.float().sum(0)
+
+
+def _wgrad_splits(M: int, K: int, N: int, tile_n: int, sms: int) -> Tuple[int, int]:
+    """(splits, rows per split) of the token rows: enough blocks for a few
+    on each of `sms` SMs, at least 256 rows a split, a multiple of 32 rows."""
+    tiles = -(-K // 64) * -(-N // tile_n)
+    splits = max(1, min(-(-4 * sms // tiles), M // 256))
+    rows = -(-M // splits)
+    rows = -(-rows // 32) * 32
+    return -(-M // rows), rows
+
+
+def gemm_wgrad(a: torch.Tensor, dy: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The weight and bias grads of a GEMM ``y = a @ w + b``: ``(a^T @
+    round(dy), sum_rows dy)``, both f32, summed over all M rows.
+
+    a [M,K] bf16 or f32, dy [M,N] f32 (rounded to a's dtype for the product,
+    f32 for the bias sum). Returns (dw [K,N], db [N]).
+    """
+    if _is_cpu(a, dy):
+        return gemm_wgrad_reference(a, dy)
+    M, K = a.shape
+    N = dy.shape[1]
+    dt = a.dtype
+    _require(dt in _DT_CODE, f"gemm_wgrad takes bf16 or f32, got {dt}")
+    _require(dy.dtype == torch.float32 and dy.shape == (M, N), "dy must be f32 [M,N]")
+    _require(a.is_contiguous() and dy.is_contiguous(), "gemm_wgrad needs contiguous operands")
+    _require(N % 8 == 0 and K % 8 == 0, "gemm_wgrad needs K, N multiples of 8")
+    splits, rows = _wgrad_splits(M, K, N, 128 if dt == torch.bfloat16 else 64, _sm_count(a))
+    out = torch.empty(K * N + N, dtype=torch.float32, device=a.device)
+    part = out if splits == 1 else torch.empty((splits, K * N + N), dtype=torch.float32,
+                                                device=a.device)
+    rc = _lib("fused_block_bwd").gemm_wgrad(
+        a.data_ptr(), dy.data_ptr(), part.data_ptr(), out.data_ptr(), M, N, K, splits, rows,
+        _DT_CODE[dt], _stream(a),
+    )
+    _check_launch("gemm_wgrad", rc)
+    gemm_wgrad.launches += 1
+    return out[:K * N].view(K, N), out[K * N:]
+
+
+def _layer_norm_bwd_f32(
+    z: torch.Tensor, gz: torch.Tensor, gamma: torch.Tensor, eps: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """VJP of ``LN(z) * gamma + beta`` (the kernels' statistics) given the
+    f32 output grad gz [..., C]: (dz, dgamma, dbeta), f32, the parameter
+    grads summed over every row."""
+    zf = z.float()
+    mean = zf.mean(-1, keepdim=True)
+    var = torch.clamp((zf * zf).mean(-1, keepdim=True) - mean * mean, min=0.0)
+    r = torch.rsqrt(var + eps)
+    zh = (zf - mean) * r
+    zb = gz * gamma.float()
+    dz = (zb - zb.mean(-1, keepdim=True) - zh * (zb * zh).mean(-1, keepdim=True)) * r
+    rows = tuple(range(gz.dim() - 1))
+    return dz, (gz * zh).sum(rows), gz.sum(rows)
+
+
+def _dp_rows(dp: Optional[torch.Tensor], dp_col: int, M: int) -> torch.Tensor:
+    if dp is None:
+        return torch.ones((), dtype=torch.float32)
+    return dp[:, dp_col].float().repeat_interleave(M // dp.shape[0])[:, None]
+
+
+def ln_residual_bwd_reference(
+    z: torch.Tensor, g: torch.Tensor, gamma: torch.Tensor, dp: Optional[torch.Tensor],
+    dp_col: int, eps: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`ln_residual_bwd`."""
+    return _layer_norm_bwd_f32(z, g.float() * _dp_rows(dp, dp_col, z.shape[0]), gamma, eps)
+
+
+def ln_residual_bwd(
+    z: torch.Tensor, g: torch.Tensor, gamma: torch.Tensor, dp: Optional[torch.Tensor],
+    dp_col: int, eps: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """VJP of :func:`ln_residual`'s ``y = res + dp[b, dp_col] * (LN(z) *
+    gamma + beta)`` given g = dL/dy: (dz [M,C], dgamma [C], dbeta [C]), f32.
+
+    z [M,C] f32 (the pre-norm input; statistics recomputed from it), g [M,C]
+    in gamma's dtype or f32, gamma [C] bf16 or f32, dp [B,2] f32 or None.
+    """
+    tensors = (z, g, gamma) + (() if dp is None else (dp,))
+    if _is_cpu(*tensors):
+        return ln_residual_bwd_reference(z, g, gamma, dp, dp_col, eps)
+    M, C = z.shape
+    dt = gamma.dtype
+    _require(dt in _DT_CODE, f"ln_residual_bwd takes bf16 or f32, got {dt}")
+    _require(z.dtype == torch.float32, "z must be f32")
+    _require(g.dtype in (dt, torch.float32) and g.shape == (M, C),
+             "g must be [M,C] in gamma's dtype or f32")
+    _require(gamma.shape == (C,), "gamma must be [C]")
+    if dp is not None:
+        _require(dp.dtype == torch.float32 and dp.dim() == 2 and dp.shape[1] == 2
+                 and M % dp.shape[0] == 0, "dp must be f32 [B,2] with M divisible by B")
+    _require(all(t.is_contiguous() for t in tensors), "ln_residual_bwd needs contiguous operands")
+    blocks = max(1, min(-(-M // 8), 4 * _sm_count(z)))
+    rows_per_block = -(-M // blocks)
+    blocks = -(-M // rows_per_block)
+    dz = torch.empty((M, C), dtype=torch.float32, device=z.device)
+    part = torch.empty((blocks, 2 * C), dtype=torch.float32, device=z.device)
+    out = torch.empty((2, C), dtype=torch.float32, device=z.device)
+    rc = _lib("fused_block_bwd").ln_residual_bwd(
+        z.data_ptr(), g.data_ptr(), gamma.data_ptr(), None if dp is None else dp.data_ptr(),
+        dp_col, M if dp is None else M // dp.shape[0], dz.data_ptr(), part.data_ptr(),
+        out.data_ptr(), M, C, float(eps), blocks, rows_per_block, _DT_CODE[dt],
+        int(g.dtype == torch.float32), _stream(z),
+    )
+    _check_launch("ln_residual_bwd", rc)
+    ln_residual_bwd.launches += 1
+    return dz, out[0], out[1]
+
+
+def _cosine_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+    rel_bias: torch.Tensor, logit_scale: torch.Tensor, mask: Optional[torch.Tensor],
+    dt: torch.dtype,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """VJP of :func:`_cosine_attention` on [B_, heads, L, hd] windows (q, k f32,
+    v and do in dt) at ``_bwd_kernel``'s rounding points: p and ds rounded to
+    dt for their products, rel_bias's grad summing the f32 ds, rowsum(dp*p)
+    taken as do . o. Returns (dq, dk, dv, d rel_bias [heads,L,L], d
+    logit_scale [heads]), f32."""
+    heads, L = q.shape[1], q.shape[2]
+    rq = torch.rsqrt((q * q).sum(-1, keepdim=True) + 1e-24)
+    rk = torch.rsqrt((k * k).sum(-1, keepdim=True) + 1e-24)
+    qf = q * rq
+    qr, kr = qf.to(dt).float(), (k * rk).to(dt).float()
+    lam = logit_scale.float().reshape(1, heads, 1, 1)
+    s = (qr @ kr.transpose(-1, -2)) * lam + rel_bias.float()[None]
+    if mask is not None:
+        nW = mask.shape[0]
+        s = (s.reshape(-1, nW, heads, L, L) + mask.float()[None, :, None]).reshape(-1, heads, L, L)
+    p = torch.softmax(s, dim=-1).to(dt).float()
+    vf, dof = v.float(), do.float()
+    dv = p.transpose(-1, -2) @ dof
+    rowsum = (dof * (p @ vf)).sum(-1, keepdim=True)
+    ds = p * (dof @ vf.transpose(-1, -2) - rowsum)
+    dsr = ds.to(dt).float()
+    qhb = dsr @ kr
+    dscale = (qhb * qf).sum((0, 2, 3))
+    qnb = lam * qhb
+    dq = rq * (qnb - q * rq * rq * (qnb * q).sum(-1, keepdim=True))
+    knb = lam * (dsr.transpose(-1, -2) @ qr)
+    dk = rk * (knb - k * rk * rk * (knb * k).sum(-1, keepdim=True))
+    return dq, dk, dv, ds.sum(0), dscale
+
+
+def window_attention_bwd_reference(
+    qkv: torch.Tensor, dout: torch.Tensor, rel_bias: torch.Tensor, logit_scale: torch.Tensor,
+    mask: Optional[torch.Tensor], *, window_size: int, num_heads: int, shift: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`window_attention_bwd`."""
+    B, H, W, C3 = qkv.shape
+    C, ws, dt = C3 // 3, window_size, qkv.dtype
+    L, hd = ws * ws, C // num_heads
+
+    def windows(t):
+        t = torch.roll(t, shifts=(-shift, -shift), dims=(1, 2)) if shift else t
+        return window_partition(t, ws)
+
+    def heads_of(t):
+        return t.reshape(-1, L, num_heads, hd).transpose(1, 2)
+
+    win, dow = windows(qkv), windows(dout)
+    dq, dk, dv, drb, dscale = _cosine_attention_bwd(
+        heads_of(win[..., :C]).float(), heads_of(win[..., C:2 * C]).float(),
+        heads_of(win[..., 2 * C:]), heads_of(dow), rel_bias, logit_scale, mask, dt,
+    )
+    dwin = torch.cat([t.transpose(1, 2).reshape(-1, L, C) for t in (dq, dk, dv)], dim=-1)
+    d = window_reverse(dwin, ws, B, H, W)
+    d = torch.roll(d, shifts=(shift, shift), dims=(1, 2)) if shift else d
+    return d, drb, dscale
+
+
+def window_attention_bwd(
+    qkv: torch.Tensor, dout: torch.Tensor, rel_bias: torch.Tensor, logit_scale: torch.Tensor,
+    mask: Optional[torch.Tensor] = None, *, window_size: int, num_heads: int, shift: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """VJP of :func:`window_attention` given dout = dL/do [B,H,W,C] in qkv's
+    dtype: (dqkv [B,H,W,3C], d rel_bias [heads,L,L] summed over every window,
+    d logit_scale [heads]), all f32. Operands as for the forward; p is
+    recomputed exactly as the forward kernel computes it."""
+    tensors = (qkv, dout, rel_bias, logit_scale) + (() if mask is None else (mask,))
+    kw = dict(window_size=window_size, num_heads=num_heads, shift=shift)
+    if _is_cpu(*tensors):
+        return window_attention_bwd_reference(qkv, dout, rel_bias, logit_scale, mask, **kw)
+    B, H, W, C3 = qkv.shape
+    C, ws, dt = C3 // 3, window_size, qkv.dtype
+    L = ws * ws
+    _require(dt in _DT_CODE, f"window_attention_bwd takes bf16 or f32, got {dt}")
+    _require(C3 == 3 * C and C == num_heads * _ATTN_HEAD_DIM,
+             f"window_attention_bwd kernel needs head_dim {_ATTN_HEAD_DIM}")
+    _require(dout.shape == (B, H, W, C) and dout.dtype == dt, "dout must be [B,H,W,C] in qkv's dtype")
+    _require(H % ws == 0 and W % ws == 0, "H and W must be multiples of the window")
+    _require(L in (16, 64, 256), "window_attention_bwd kernel needs ws in {4, 8, 16}")
+    _require(rel_bias.shape == (num_heads, L, L) and rel_bias.dtype == dt,
+             "rel_bias must be [heads, L, L] in qkv's dtype")
+    _require(logit_scale.numel() == num_heads and logit_scale.dtype == torch.float32,
+             "logit_scale must be f32 with one value per head")
+    nW = (H // ws) * (W // ws)
+    if mask is not None:
+        _require(mask.shape == (nW, L, L) and mask.dtype == dt,
+                 "mask must be [nW, L, L] in qkv's dtype")
+    _require(all(t.is_contiguous() for t in tensors), "window_attention_bwd needs contiguous operands")
+    per_window = num_heads * L * L + num_heads
+    dqkv = torch.empty((B, H, W, C3), dtype=torch.float32, device=qkv.device)
+    part = torch.empty((B * nW, per_window), dtype=torch.float32, device=qkv.device)
+    out = torch.empty(per_window, dtype=torch.float32, device=qkv.device)
+    rc = _lib("fused_block_bwd").swin_window_attn_bwd(
+        qkv.data_ptr(), dout.data_ptr(), rel_bias.data_ptr(),
+        None if mask is None else mask.data_ptr(), logit_scale.data_ptr(), dqkv.data_ptr(),
+        part.data_ptr(), out.data_ptr(), B, H, W, C, num_heads, ws, shift, _DT_CODE[dt],
+        _stream(qkv),
+    )
+    _check_launch("swin_window_attn_bwd", rc)
+    window_attention_bwd.launches += 1
+    return dqkv, out[:num_heads * L * L].view(num_heads, L, L), out[num_heads * L * L:]
+
+
+# ---------------------------------------------------------------------------
 # the whole block
 # ---------------------------------------------------------------------------
+
+OPERANDS = ("wqkv", "bqkv", "wproj", "bproj", "ln1_scale", "ln1_bias", "w1", "b1",
+            "w2", "b2", "ln2_scale", "ln2_bias", "rel_bias", "logit_scale")
 
 
 def block_reference(
@@ -353,6 +678,157 @@ def block_reference(
     return window_reverse(y, ws, B, H, W)
 
 
+def block_backward_reference(
+    g, x, wqkv, bqkv, wproj, bproj, ln1_scale, ln1_bias, w1, b1, w2, b2,
+    ln2_scale, ln2_bias, rel_bias, logit_scale, dp, mask=None,
+    *, window_size: int, num_heads: int, eps: float,
+) -> tuple:
+    """PyTorch mirror of ``_bwd_kernel``: the VJP of :func:`block_reference`
+    for the cotangent g, with g and x [B,H,W,C] in shifted-window coordinates.
+
+    Recomputes the forward, then backpropagates at the kernel's rounding
+    points: every gradient that feeds a product is rounded to the compute
+    dtype there (bias and LN grads sum the f32 values); m1 and gelu(m1), p,
+    ds and the attention-output grad are in the compute dtype; gelu' uses the
+    exact erf. Returns (dx, then the grads of wqkv ... logit_scale, each in its
+    operand's dtype, then zeros for dp, and for mask when one is given).
+    """
+    B, H, W, C = x.shape
+    ws, heads = window_size, num_heads
+    nW, L, hd, dt = (H // ws) * (W // ws), ws * ws, C // num_heads, x.dtype
+
+    def rnd(t):  # round to the compute dtype, back to f32
+        return t.to(dt).float()
+
+    def heads_of(t):
+        return t.reshape(-1, L, heads, hd).transpose(1, 2)
+
+    def unheads(t):
+        return t.transpose(1, 2).reshape(-1, L, C)
+
+    def wgrad(a, d):  # summed over windows and rows
+        return rnd(a).reshape(-1, a.shape[-1]).t() @ rnd(d).reshape(-1, d.shape[-1])
+
+    win = window_partition(x, ws).float()                                # [B_, L, C]
+    gw = window_partition(g, ws).float()
+    # forward recompute
+    qkv = rnd(win @ wqkv.float() + bqkv.float())
+    q, k, v = heads_of(qkv[..., :C]), heads_of(qkv[..., C:2 * C]), heads_of(qkv[..., 2 * C:])
+    o = unheads(_cosine_attention(q, k, v.to(dt), rel_bias, logit_scale, mask, dt).float())
+    proj = o @ wproj.float() + bproj.float()
+    dp0 = dp[:, 0].float().repeat_interleave(nW).reshape(-1, 1, 1)
+    dp1 = dp[:, 1].float().repeat_interleave(nW).reshape(-1, 1, 1)
+    h1 = win + dp0 * _layer_norm_f32(proj, ln1_scale, ln1_bias, eps)
+    m1 = rnd(h1) @ w1.float() + b1.float()
+    mg = rnd(F.gelu(m1))
+    m2 = mg @ w2.float() + b2.float()
+    # backward
+    m2b, dln2s, dln2b = _layer_norm_bwd_f32(m2, gw * dp1, ln2_scale, eps)
+    m1b = (rnd(m2b) @ w2.float().t()) * _gelu_grad(rnd(m1))
+    h1b = gw + rnd(m1b) @ w1.float().t()
+    projb, dln1s, dln1b = _layer_norm_bwd_f32(proj, h1b * dp0, ln1_scale, eps)
+    ab = rnd(rnd(projb) @ wproj.float().t())
+    dq, dk, dv, drb, dscale = _cosine_attention_bwd(
+        q, k, v.to(dt), heads_of(ab).to(dt), rel_bias, logit_scale, mask, dt)
+    qkvb = torch.cat([unheads(dq), unheads(dk), unheads(dv)], dim=-1)
+    dx = (h1b + rnd(qkvb) @ wqkv.float().t()).to(dt)
+    grads = (
+        wgrad(win, qkvb), qkvb.sum((0, 1)), wgrad(o, projb), projb.sum((0, 1)), dln1s, dln1b,
+        wgrad(h1, m1b), m1b.sum((0, 1)), wgrad(mg, m2b), m2b.sum((0, 1)), dln2s, dln2b,
+        drb, dscale,
+    )
+    operands = (wqkv, bqkv, wproj, bproj, ln1_scale, ln1_bias, w1, b1, w2, b2,
+                ln2_scale, ln2_bias, rel_bias, logit_scale)
+    out = (window_reverse(dx, ws, B, H, W),) + tuple(
+        gr.to(op.dtype).reshape(op.shape) for gr, op in zip(grads, operands)
+    ) + (torch.zeros_like(dp),)
+    return out + ((torch.zeros_like(mask),) if mask is not None else ())
+
+
+def _block_forward(x, wqkv, bqkv, wproj, bproj, ln1_scale, ln1_bias, w1, b1, w2, b2,
+                   ln2_scale, ln2_bias, rel_bias, logit_scale, mask, dp,
+                   window_size, num_heads, eps, shift, keep):
+    """The seven forward launches (or their plain versions on the CPU). With
+    `keep`, also returns what the backward reads: (qkv, o, proj, h1 in the
+    compute dtype, gelu(m1), m2)."""
+    B, H, W, C = x.shape
+    M, dt = B * H * W, x.dtype
+    x2 = x.reshape(M, C)
+    qkv = gemm_bias_act(x2, wqkv, bqkv, out_dtype=dt)
+    o = window_attention(
+        qkv.reshape(B, H, W, 3 * C), rel_bias, logit_scale, mask,
+        window_size=window_size, num_heads=num_heads, shift=shift,
+    )
+    proj = gemm_bias_act(o.reshape(M, C), wproj, bproj, out_dtype=torch.float32)
+    h1_dt, h1 = ln_residual(proj, x2, ln1_scale, ln1_bias, dp, 0, eps, dt, keep_f32=True)
+    mg = gemm_bias_act(h1_dt, w1, b1, act="gelu", out_dtype=dt)
+    m2 = gemm_bias_act(mg, w2, b2, out_dtype=torch.float32)
+    y, _ = ln_residual(m2, h1, ln2_scale, ln2_bias, dp, 1, eps, dt)
+    return y.reshape(B, H, W, C), ((qkv, o, proj, h1_dt, mg, m2) if keep else None)
+
+
+class FusedSwinBlock(torch.autograd.Function):
+    """One SwinV2 block whose forward is :func:`_block_forward`'s seven
+    launches and whose backward is the four backward kernels (eleven launches)
+    plus one forward GEMM, or all of their plain versions on CPU tensors.
+
+    Unlike ``_fused_block_fwd`` of the JAX package, which saves the block's
+    inputs only and recomputes the forward in the backward kernel, the forward
+    here saves its intermediates (qkv, the attention output, h1 and gelu(m1)
+    in the compute dtype, the proj and MLP-2 outputs in f32: 26 bytes per
+    token and channel in bf16, about 0.85 GB over the 24 blocks of a
+    Swin-B-256 step at batch 8) and the backward recomputes only the
+    pre-GELU MLP-1 output m1 (one GEMM). The operand grads are those of the operands handed
+    in, in each operand's dtype; the grads of dp and mask are None.
+    """
+
+    @staticmethod
+    def forward(ctx, x, wqkv, bqkv, wproj, bproj, ln1_scale, ln1_bias, w1, b1, w2, b2,
+                ln2_scale, ln2_bias, rel_bias, logit_scale, mask, dp,
+                window_size, num_heads, eps, shift):
+        y, saved = _block_forward(
+            x, wqkv, bqkv, wproj, bproj, ln1_scale, ln1_bias, w1, b1, w2, b2,
+            ln2_scale, ln2_bias, rel_bias, logit_scale, mask, dp,
+            window_size, num_heads, eps, shift, keep=True)
+        ctx.save_for_backward(x, wqkv, wproj, w1, b1, w2, ln1_scale, ln2_scale, rel_bias,
+                              logit_scale, mask, dp, *saved)
+        ctx.geom = (window_size, num_heads, eps, shift)
+        ctx.dtypes = [t.dtype for t in (wqkv, bqkv, wproj, bproj, ln1_scale, ln1_bias,
+                                        w1, b1, w2, b2, ln2_scale, ln2_bias, rel_bias,
+                                        logit_scale)]
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        (x, wqkv, wproj, w1, b1, w2, ln1_scale, ln2_scale, rel_bias, logit_scale, mask, dp,
+         qkv, o, proj, h1_dt, mg, m2) = ctx.saved_tensors
+        window_size, num_heads, eps, shift = ctx.geom
+        B, H, W, C = x.shape
+        M, dt, f32 = B * H * W, x.dtype, torch.float32
+        g = gy.to(dt).contiguous().reshape(M, C)
+        m1 = gemm_bias_act(h1_dt, w1, b1, out_dtype=dt)
+        m2b, dln2s, dln2b = ln_residual_bwd(m2, g, ln2_scale, dp, 1, eps)
+        dw2, db2 = gemm_wgrad(mg, m2b)
+        m1b = gemm_dgrad(m2b, w2, m1, epi="gelu", out_dtype=f32)
+        dw1, db1 = gemm_wgrad(h1_dt, m1b)
+        h1b = gemm_dgrad(m1b, w1, g, epi="add", out_dtype=f32)
+        projb, dln1s, dln1b = ln_residual_bwd(proj, h1b, ln1_scale, dp, 0, eps)
+        dwproj, dbproj = gemm_wgrad(o.reshape(M, C), projb)
+        ab = gemm_dgrad(projb, wproj, out_dtype=dt)
+        dqkv, drb, dscale = window_attention_bwd(
+            qkv.reshape(B, H, W, 3 * C), ab.reshape(B, H, W, C), rel_bias, logit_scale, mask,
+            window_size=window_size, num_heads=num_heads, shift=shift)
+        dqkv = dqkv.reshape(M, 3 * C)
+        dwqkv, dbqkv = gemm_wgrad(x.reshape(M, C), dqkv)
+        dx = gemm_dgrad(dqkv, wqkv, h1b, epi="add", out_dtype=dt)
+        if x.device.type == "cuda":
+            FusedSwinBlock.launches += 1
+        grads = (dwqkv, dbqkv, dwproj, dbproj, dln1s, dln1b, dw1, db1, dw2, db2,
+                 dln2s, dln2b, drb, dscale.reshape(logit_scale.shape))
+        return (dx.reshape(B, H, W, C),) + tuple(
+            gr.to(d) for gr, d in zip(grads, ctx.dtypes)) + (None,) * 6
+
+
 def fused_swin_block(
     x: torch.Tensor,          # [B, H, W, C] (un-rolled; pass shift= instead)
     wqkv: torch.Tensor,       # [C, 3C]   (query | key | value)
@@ -375,24 +851,20 @@ def fused_swin_block(
 ) -> torch.Tensor:
     """One SwinV2 block forward as seven kernel launches (CUDA) or the same
     seven steps in their plain versions (CPU). Every tensor is in the
-    activation dtype except logit_scale and droppath_keep (f32)."""
-    B, H, W, C = x.shape
-    M, dt = B * H * W, x.dtype
+    activation dtype except logit_scale and droppath_keep (f32). When
+    autograd records and an input requires grad, the block runs through
+    :class:`FusedSwinBlock`, whose backward is the backward kernels."""
     dp = None if droppath_keep is None else droppath_keep.float().contiguous()
-    x2 = x.reshape(M, C)
-    qkv = gemm_bias_act(x2, wqkv, bqkv, out_dtype=dt)
-    o = window_attention(
-        qkv.reshape(B, H, W, 3 * C), rel_bias, logit_scale, mask,
-        window_size=window_size, num_heads=num_heads, shift=shift,
-    )
-    proj = gemm_bias_act(o.reshape(M, C), wproj, bproj, out_dtype=torch.float32)
-    h1_dt, h1 = ln_residual(proj, x2, ln1_scale, ln1_bias, dp, 0, eps, dt, keep_f32=True)
-    m = gemm_bias_act(h1_dt, w1, b1, act="gelu", out_dtype=dt)
-    m2 = gemm_bias_act(m, w2, b2, out_dtype=torch.float32)
-    y, _ = ln_residual(m2, h1, ln2_scale, ln2_bias, dp, 1, eps, dt)
+    ops = (wqkv, bqkv, wproj, bproj, ln1_scale, ln1_bias, w1, b1, w2, b2,
+           ln2_scale, ln2_bias, rel_bias, logit_scale)
+    x = x.contiguous()
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x,) + ops):
+        y = FusedSwinBlock.apply(x, *ops, mask, dp, window_size, num_heads, eps, shift)
+    else:
+        y, _ = _block_forward(x, *ops, mask, dp, window_size, num_heads, eps, shift, keep=False)
     if x.device.type == "cuda":
         fused_swin_block.launches += 1
-    return y.reshape(B, H, W, C)
+    return y
 
 
 reset_launch_counts()

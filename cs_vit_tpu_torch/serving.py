@@ -9,7 +9,8 @@ padding a short request by repeating its last row:
 
 Checkpoints are reference-style ``.pt`` files (``{"model"|"merged":
 state_dict}``, as ``tools/export_torch_ckpt.py`` writes them from an orbax
-checkpoint of the JAX package) or a plain state dict. ``predict_images``
+checkpoint of the JAX package, and ``train.save_checkpoint`` writes them) or
+a plain state dict. ``predict_images``
 (host-side square crop) arrives with the host-pipeline slice.
 """
 
@@ -24,6 +25,7 @@ import torch
 from .cli.common import build_model, resolve_device
 from .config import FinetuneConfig
 from .models import init_poser_weights
+from .train.checkpoint import latest_checkpoint
 from .train.convert import load_reference_state_dict
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -78,11 +80,15 @@ class PoserSession:
     def from_experiment(
         cls, exp_dir: str, batch_size: int = 8, seq_len: int = 1, **kw
     ) -> "PoserSession":
-        """Build from ``<exp_dir>/config.json`` and ``<exp_dir>/checkpoint.pt``
-        (random weights from ``INIT_SEED`` when there is no checkpoint)."""
+        """Build from ``<exp_dir>/config.json`` and the checkpoint file the
+        ``<exp_dir>/checkpoint`` symlink points at (as training writes it), or
+        else ``<exp_dir>/checkpoint.pt``; random weights from ``INIT_SEED``
+        when there is neither."""
         cfg = FinetuneConfig.from_json_file(osp.join(exp_dir, "config.json"))
-        ckpt = osp.join(exp_dir, "checkpoint.pt")
-        return cls(cfg, checkpoint=ckpt if osp.exists(ckpt) else None,
+        ckpt = latest_checkpoint(exp_dir)
+        if ckpt is None or not osp.isfile(ckpt):
+            ckpt = osp.join(exp_dir, "checkpoint.pt")
+        return cls(cfg, checkpoint=ckpt if osp.isfile(ckpt) else None,
                    batch_size=batch_size, seq_len=seq_len, **kw)
 
     def warmup(self):

@@ -7,8 +7,8 @@ test whether a card is present and skips otherwise. Run them on the card:
     python -m pytest --noconftest tests/test_torch_kernels.py -m gpu -q
 
 (``--noconftest``: tests/conftest.py sets up JAX, which the card's machine
-need not have.) The per-kernel cases run ``chip_smoke.kernel_checks``, the
-check ``chip_smoke.py`` makes, at the Swin-B-256 block geometries and the
+need not have.) The per-kernel cases run ``chip_smoke.kernel_checks`` and
+``chip_smoke.bwd_kernel_checks``, the checks ``chip_smoke.py`` makes, at the Swin-B-256 block geometries and the
 batches of ``chip_smoke.CHECK_BATCHES`` (so also marked ``slow``) with its
 stated tolerances (``chip_smoke.TOL``).
 This file imports no JAX.
@@ -42,8 +42,31 @@ def test_kernels_match_plain_versions(geom, dname):
         bad = [r for r in results if not r[3] <= r[4]]
         assert not bad, (B, bad)
         # the single-kernel checks (3 GEMM, 1 attention, 2 LN), then one block
-        assert fb.launch_counts() == {"gemm_bias_act": 3 + 4, "ln_residual": 2 + 2,
-                                      "window_attention": 1 + 1, "fused_swin_block": 1}
+        counts = {k: v for k, v in fb.launch_counts().items() if v}
+        assert counts == {"gemm_bias_act": 3 + 4, "ln_residual": 2 + 2,
+                          "window_attention": 1 + 1, "fused_swin_block": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.slow
+@pytest.mark.parametrize("dname", ["bf16", "f32"])
+@pytest.mark.parametrize("geom", chip_smoke.GEOMS,
+                         ids=[f"stage{g[0]}_shift{g[5]}" for g in chip_smoke.GEOMS])
+def test_backward_kernels_match_plain_versions(geom, dname):
+    """chip_smoke.py's backward checks at one geometry and dtype, every batch."""
+    _need_card()
+    for B in chip_smoke.CHECK_BATCHES:
+        fb.reset_launch_counts()
+        results = chip_smoke.bwd_kernel_checks(torch, fb, dname, geom, B)
+        bad = [r for r in results if not r[3] <= r[4]]
+        assert not bad, (B, bad)
+        # the single-kernel checks (2 LN, 4 dgrad, 3 wgrad, 1 attention), then
+        # one block forward (with the backward's MLP-1 recompute) and backward
+        counts = {k: v for k, v in fb.launch_counts().items() if v}
+        assert counts == {"ln_residual_bwd": 2 + 2, "gemm_dgrad": 4 + 4, "gemm_wgrad": 3 + 4,
+                          "window_attention_bwd": 1 + 1, "FusedSwinBlock": 1,
+                          "fused_swin_block": 1, "gemm_bias_act": 4 + 1, "ln_residual": 2,
+                          "window_attention": 1}
 
 
 @pytest.mark.gpu
@@ -59,6 +82,52 @@ def test_kernels_refuse_what_they_do_not_take():
     with pytest.raises(ValueError):
         fb.window_attention(qkv, torch.zeros(4, 64, 64, device="cuda"),
                             torch.ones(4, device="cuda"), window_size=8, num_heads=4)
+
+
+@pytest.mark.gpu
+def test_backward_kernels_refuse_what_they_do_not_take():
+    _need_card()
+    dy = torch.randn(64, 20, device="cuda")  # N not a multiple of 8
+    w = torch.randn(32, 20, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        fb.gemm_dgrad(dy, w)
+    with pytest.raises(ValueError):  # the grad must be f32
+        fb.gemm_wgrad(torch.randn(64, 32, device="cuda", dtype=torch.bfloat16),
+                      torch.randn(64, 16, device="cuda", dtype=torch.bfloat16))
+    with pytest.raises(ValueError):  # one tensor on the CPU
+        fb.ln_residual_bwd(torch.randn(8, 16, device="cuda"), torch.randn(8, 16),
+                           torch.ones(16, device="cuda"), None, 0, 1e-5)
+    qkv = torch.randn(1, 8, 8, 3 * 64, device="cuda")  # head_dim 16
+    with pytest.raises(ValueError):
+        fb.window_attention_bwd(qkv, torch.randn(1, 8, 8, 64, device="cuda"),
+                                torch.zeros(4, 64, 64, device="cuda"),
+                                torch.ones(4, device="cuda"), window_size=8, num_heads=4)
+
+
+def test_cpu_tensors_take_the_plain_backward_versions():
+    """On CPU tensors each backward wrapper returns its plain version's result
+    and counts no launch, and so does FusedSwinBlock's backward."""
+    g = torch.Generator().manual_seed(1)
+    fb.reset_launch_counts()
+    dy, w, aux = (torch.randn(8, 24, generator=g), torch.randn(16, 24, generator=g),
+                  torch.randn(8, 16, generator=g))
+    assert torch.equal(fb.gemm_dgrad(dy, w, aux, "gelu"),
+                       fb.gemm_dgrad_reference(dy, w, aux, "gelu"))
+    a = torch.randn(8, 16, generator=g)
+    for got, want in zip(fb.gemm_wgrad(a, dy), fb.gemm_wgrad_reference(a, dy)):
+        assert torch.equal(got, want)
+    z, gy, dp = torch.randn(8, 16, generator=g), torch.randn(8, 16, generator=g), torch.ones(2, 2)
+    for got, want in zip(fb.ln_residual_bwd(z, gy, torch.ones(16), dp, 1, 1e-5),
+                         fb.ln_residual_bwd_reference(z, gy, torch.ones(16), dp, 1, 1e-5)):
+        assert torch.equal(got, want)
+    qkv, dout = torch.randn(1, 8, 8, 48, generator=g), torch.randn(1, 8, 8, 16, generator=g)
+    kw = dict(window_size=4, num_heads=2, shift=2)
+    mask = torch.from_numpy(_shift_attn_mask(8, 8, 4, 2))
+    bias, scale = torch.rand(2, 16, 16, generator=g), torch.full((2,), 10.0)
+    for got, want in zip(fb.window_attention_bwd(qkv, dout, bias, scale, mask, **kw),
+                         fb.window_attention_bwd_reference(qkv, dout, bias, scale, mask, **kw)):
+        assert torch.equal(got, want)
+    assert all(v == 0 for v in fb.launch_counts().values())
 
 
 def test_cpu_tensors_take_the_plain_versions():

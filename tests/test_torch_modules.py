@@ -57,11 +57,15 @@ def test_batchnorm_eval_matches_jax(rng):
 
 
 def test_batchnorm_keeps_bf16_and_refuses_training_mode():
+    """The mode is the phase's ``train`` argument: ``nn.Module.train()`` does
+    not switch the module to batch statistics, nor touch the running ones."""
     bn = tm.TorchBatchNorm(8).eval()
     x = torch.randn(2, 3, 8, dtype=torch.bfloat16)
-    assert bn(x).dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError):
-        bn.train()(x)
+    want = bn(x)
+    assert want.dtype == torch.bfloat16
+    assert torch.equal(bn.train()(x), want)
+    assert torch.equal(bn.running_mean, torch.zeros(8))
+    assert bn(x, train=True).dtype == torch.bfloat16
 
 
 @pytest.mark.parametrize("compat_scale", [True, False])
