@@ -9,35 +9,51 @@ It builds the CUDA kernels from ``cs_vit_tpu_torch/ops/csrc/`` and then, in
 order, failing (non-zero exit, no result line) at the first phase that fails:
 
 1. prints the card (``nvidia-smi`` name and power limit), turns TF32 off;
-2. builds the kernels (both sources at once) and prints the build time and
-   the compiler's register/spill report;
-3. holds each forward and backward kernel, the whole ``fused_swin_block``
-   and the whole block backward (``FusedSwinBlock``) against its plain
-   PyTorch version at every Swin-B-256 block geometry (stages 0/1 with and
-   without shift, stage 2, stage 3 at L=64), at batch 1, 2 and 8, bf16 and
-   f32;
+2. builds the kernels (all four sources at once) and prints the build time
+   and the compiler's register/spill report;
+3. holds each forward and backward kernel of the whole-block path, the whole
+   ``fused_swin_block``, the whole block backward (``FusedSwinBlock``) and
+   the attention-only window kernel (``fused_window_attention``) against its
+   plain PyTorch version at every Swin-B-256 block geometry (stages 0/1 with
+   and without shift, stage 2, stage 3 at L=64), at batch 1, 2 and 8, bf16
+   and f32 (the attention-only kernel also at the 3, 24 and 40 images of the
+   temporal paths); a CUDA ``fused_window_attention`` under autograd must
+   raise;
 4. serves the flagship model (Swin-B-256 Poser, img 256, bf16, synthetic
    MANO, seeded random weights) through ``PoserSession`` at batch 1 and 8,
    checks the outputs, the kernel launch counts per forward, and the kernel
    path against the eager path on the card;
-5. trains the same model in the spatial phase at batch 8
+5. serves the same model with realtime temporal encoders over T=3 frames on
+   the attention-only kernel (``attention_impl="pallas"``; ``"hybrid"``
+   too) at batch 1 and 8, with the same checks after calibrating the
+   BatchNorm statistics;
+6. trains the flagship model in the spatial phase at batch 8
    (``train.make_train_step``): f32 backbone grads of the kernel path
    against the eager path under a backbone-only loss, and the bf16 step's
    loss and grad norm against the eager path's, held to a measured floor;
    TRAIN_STEPS bf16 steps on one batch whose loss must fall, with the
    launch counts of one step and the step time; a NaN batch that must leave
    the state bit-identical; a profiled step (device idle share);
-6. times every forward kernel at the serving path's shapes (batch 8) and
-   every backward kernel at the train step's, each beside its plain version,
-   one library call and its bound, and the serve latency at b1/b8;
-7. prints ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}`` as
-   the last line.
+7. trains it in the temporal phase at batch 8, realtime T=3 and full T=5 on
+   the attention-only kernel: the f32 backbone tokens and the f32 step
+   against the eager path,
+   TEMPORAL_STEPS bf16 steps whose loss must fall, every frozen parameter
+   and statistic bit-identical afterwards, no saved backbone activations,
+   the NaN skip;
+8. runs the tensor-core/SFU overlap probe's kernel against its plain version
+   in its three modes, then its entry point (``tools.probe_overlap``);
+9. times every kernel at its path's shapes (batch 8) beside its plain
+   version, one library call and its bound, and the serve latencies;
+10. prints ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}`` as
+    the last line.
 
-It imports nothing of JAX or of ``cs_vit_tpu``.
+Each phase prints its wall seconds. It imports nothing of JAX or of
+``cs_vit_tpu``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -101,11 +117,75 @@ TRAIN_F32_TOL, TRAIN_BF16_SLACK = 1e-3, 0.05
 SERVE_TOKEN_TOL = {"f32": 1e-4, "bf16": 5e-2}
 SERVE_MM_SLACK = {"f32": 0.01, "bf16": 1.0}
 WITNESSES = 8
+WA_SOURCE = "cs_vit_tpu_torch/ops/csrc/window_attention.cu"
+WA_REPLACES = "cs_vit_tpu/ops/window_attention.py:31"
+PROBE_SOURCE = "cs_vit_tpu_torch/ops/csrc/probe_overlap.cu"
+PROBE_REPLACES = "tools/probe_overlap.py:51"
+# the temporal cases of __graft_entry__.py: realtime over T=3 frames (served
+# and trained), full over T=5 (trained)
+RT_T, FULL_T = 3, 5
+# the image counts the attention-only kernel sees on those paths beyond
+# CHECK_BATCHES: realtime b1 and b8 over RT_T frames, full b8 over FULL_T
+WA_PATH_BATCHES = (RT_T, 8 * RT_T, 8 * FULL_T)
+# temporal train steps (b8, bf16 on f32 masters, only the temporal encoders
+# train): AdamW at TEMPORAL_LR, constant; TEMPORAL_STEPS steps on one fixed
+# batch, the last three of which must average below TRAIN_FALL times the
+# first three
+TEMPORAL_LR, TEMPORAL_STEPS = 1e-4, 20
+# Before the realtime serving comparison and the temporal steps the
+# BatchNorm running statistics are brought to the batch's own statistics by
+# CALIBRATION_FORWARDS forwards without autograd in each phase that moves
+# them (spatial: the perspective and spatial encoders; temporal: the
+# temporal encoders, for serving), as a trained checkpoint would have them:
+# at their initial values (mean 0, var 1) the decoders' activations grow
+# layer by layer and their nearly hard (sqrt(d_h)-multiplied) attention
+# turns the backbone paths' 1e-6 f32 differences into 8% differences of
+# their output (CPU rehearsal at Swin-B width); calibrated, 4e-5. The
+# temporal f32 step, kernel path vs eager path, is then held to
+# TRAIN_F32_TOL (loss and grad_norm, relative to the eager value).
+CALIBRATION_FORWARDS = 30
+# the temporal step holds no backbone activations for backward: what autograd
+# saves in one step stays under this many bytes (the temporal encoders' and
+# heads' own, a few MB; the spatial step's backbone saves about 2 GB)
+TEMPORAL_SAVED_MAX = 64 * 2**20
+# probe kernel vs plain: bf16 acc to 2e-2 of its scale (eight products, each
+# rounded to bf16; a sum in another order flips a rounding by one ulp and
+# later products carry it), f32 vec to 1e-5 relative per element (__expf on
+# the SFU against exp; 32 passes of exp(v/4 - 1) contract errors)
+PROBE_TOL = {"acc": 2e-2, "vec": 1e-5}
+# SFU exp2 throughput of a Hopper SM (16 per clock, the CUDA programming
+# guide's table of arithmetic instruction throughput, compute capability 9.0)
+SFU_PER_CLOCK_PER_SM = 16
 
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr)
     raise SystemExit(1)
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    t0 = time.perf_counter()
+    yield
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+class Launches:
+    """The launch counters of several kernel modules as one: each module has
+    ``reset_launch_counts()`` and ``launch_counts()``."""
+
+    def __init__(self, *modules):
+        self.modules = modules
+
+    def reset_launch_counts(self) -> None:
+        for m in self.modules:
+            m.reset_launch_counts()
+
+    def launch_counts(self) -> dict:
+        out = {}
+        for m in self.modules:
+            out.update(m.launch_counts())
+        return out
 
 
 def sync(torch) -> None:
@@ -282,19 +362,67 @@ def bwd_kernel_checks(torch, fb, dname, geom, B=2):
     ]
 
 
-def check_kernels(torch, fb):
-    """Phase 3: kernel_checks and bwd_kernel_checks at every geometry and
-    batch, bf16 and f32; one line per geometry, batch and dtype with each
-    kernel's worst rel; fails on the first disagreement. Returns each
-    kernel's worst bf16 max_abs."""
+def window_attention_inputs(torch, B, res, C, heads, ws, shift, dtype, seed):
+    """Seeded operands of ``fused_window_attention`` at one block geometry,
+    as the ``"pallas"`` backbone hands them over: q, k, v [B*nW, heads, L,
+    32] in `dtype`; the bias [nW, heads, L, L] f32 (the CPB bias plus the f32
+    shift mask) for a shifted block, else [1, heads, L, L] in `dtype`; the
+    logit scale [heads] f32."""
+    from cs_vit_tpu_torch.models.swinv2 import _shift_attn_mask
+
+    g = torch.Generator().manual_seed(seed)
+    L, nW, hd = ws * ws, (res // ws) ** 2, C // heads
+    q, k, v = (torch.randn(B * nW, heads, L, hd, generator=g).to(DEV, dtype) for _ in range(3))
+    rel_bias = (16 * torch.sigmoid(torch.randn(heads, L, L, generator=g))).to(DEV, dtype)
+    bias = rel_bias[None]
+    if shift:
+        bias = bias + torch.from_numpy(_shift_attn_mask(res, res, ws, shift)).to(DEV)[:, None]
+    scale = torch.exp(torch.clamp(math.log(10.0) + 0.5 * torch.randn(heads, generator=g),
+                                  max=math.log(100.0))).to(DEV)
+    return q, k, v, bias.contiguous(), scale
+
+
+def window_attention_checks(torch, wa, dname, geom, B=2):
+    """The attention-only window kernel against its plain version at one block
+    geometry and batch B: [(kernel, what, max_abs, rel, tol)]."""
+    stage, res, C, heads, ws, shift, _ = geom
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dname]
+    ops = window_attention_inputs(torch, B, res, C, heads, ws, shift, dtype,
+                                  seed=stage * 10 + shift + 100 * B + 13)
+    got, want = wa.fused_window_attention(*ops), wa.fused_window_attention_reference(*ops)
+    sync(torch)
+    what = f"bias {ops[3].dtype} [{ops[3].shape[0]},H,L,L]"
+    return [("fused_window_attention", what, *rel_err(got, want), TOL[dname]["kernel"])]
+
+
+def check_window_attention_refuses_grad(torch, wa):
+    """A CUDA call under autograd with an input that requires grad raises:
+    the kernel has no backward."""
+    q, k, v, bias, scale = window_attention_inputs(torch, 1, 16, 64, 2, 4, 0, torch.float32, 1)
+    q.requires_grad_()
+    try:
+        wa.fused_window_attention(q, k, v, bias, scale)
+    except RuntimeError as e:
+        print(f"check: fused_window_attention under autograd raises: {e}")
+        return
+    fail("fused_window_attention ran under autograd on an input that requires grad")
+
+
+def check_kernels(torch, fb, wa):
+    """Phase 3: kernel_checks, bwd_kernel_checks and window_attention_checks
+    at every geometry and batch, bf16 and f32; one line per geometry, batch
+    and dtype with each kernel's worst rel; fails on the first disagreement.
+    Returns each kernel's worst bf16 max_abs."""
     worst = {k: 0.0 for k in ("gemm_bias_act", "ln_residual", "swin_window_attn_fwd",
                               "gemm_dgrad", "gemm_wgrad", "ln_residual_bwd",
-                              "swin_window_attn_bwd")}
+                              "swin_window_attn_bwd", "fused_window_attention")}
     n_checks = 0
     for dname in ("bf16", "f32"):
-        for geom, B in ((g, B) for g in GEOMS for B in CHECK_BATCHES):
-            results = (kernel_checks(torch, fb, dname, geom, B)
-                       + bwd_kernel_checks(torch, fb, dname, geom, B))
+        for geom, B in ((g, B) for g in GEOMS for B in CHECK_BATCHES + WA_PATH_BATCHES):
+            results = window_attention_checks(torch, wa, dname, geom, B)
+            if B in CHECK_BATCHES:
+                results = (kernel_checks(torch, fb, dname, geom, B)
+                           + bwd_kernel_checks(torch, fb, dname, geom, B) + results)
             n_checks += len(results)
             where = f"{dname} b{B} stage{geom[0]} shift{geom[5]}"
             by_kernel = {}
@@ -325,7 +453,7 @@ def cuda_ms(torch, fn, iters=20, warmup=3):
 
 
 def time_kernels(torch, fb, F, B=8):
-    """Phase 5: per-forward totals at batch B, bf16, summed over the 24 blocks."""
+    """Phase 9: per-forward totals at batch B, bf16, summed over the 24 blocks."""
     bf = torch.bfloat16
     tot = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes_s": 0.0, "flops_s": 0.0,
                "bound_ms": 0.0} for k in ("gemm_bias_act", "ln_residual", "swin_window_attn_fwd")}
@@ -457,29 +585,44 @@ def serve(torch, fb):
             fail("verts_cam has the wrong shape or non-finite values")
     print("serve: joint_cam finite, shapes [N,1,21,3] for N = 8, 11 (padded), 3 (b1)")
 
-    # kernel path vs eager path on the card: sessions of one config (so one
-    # set of weights) that differ only in attention_impl, on the same inputs
-    req = request(8)
+    # kernel path vs eager path on the card: one session per dtype (one set
+    # of weights), its backbone switched between the two paths
+    f32 = PoserSession(cfg, batch_size=8, dtype="float32", device=DEV)
+    compare_paths(torch, "serve", {"bf16": s8, "f32": f32}, "fused", request(8),
+                  bf16_tokens=True)
+    del f32
+    return s1, s8, request, counts, forwards
+
+
+def compare_paths(torch, tag, sessions, impl, req, bf16_tokens):
+    """The served model on the backbone path `impl` against the eager path,
+    on the card, same weights and inputs: f32 backbone tokens within
+    SERVE_TOKEN_TOL (bf16 tokens too when `bf16_tokens`; the bf16 flows of
+    the eager path and of an attention-only kernel path differ by design, so
+    those are printed only), joint_cam within twice each dtype's noise
+    floor plus SERVE_MM_SLACK (see there). `sessions` maps "bf16" and "f32"
+    to sessions of one config; each is left on `impl`."""
+    import numpy as np
+
     jc, tokens = {}, {}
-    for dname, dtype in (("bf16", "bfloat16"), ("f32", "float32")):
-        for impl in ("fused", "eager"):
-            sess = PoserSession(FinetuneConfig(**dict(cfg.to_dict(), attention_impl=impl)),
-                                batch_size=8, dtype=dtype, device=DEV)
-            jc[dname, impl] = sess.predict_crops(*req)["joint_cam"]
-            x = torch.as_tensor(req[0][:, 0]).to(DEV, sess._dtype)
-            x = ((x.float() - sess.model.img_mean) / sess.model.img_std).to(sess._dtype)
+    for dname, sess in sessions.items():
+        x = torch.as_tensor(req[0].reshape((-1,) + req[0].shape[2:])).to(DEV, sess._dtype)
+        x = ((x.float() - sess.model.img_mean) / sess.model.img_std).to(sess._dtype)
+        for path in (impl, "eager"):
+            sess.model.backbone.set_attention_impl(path)
+            jc[dname, path] = sess.predict_crops(*req)["joint_cam"]
             with torch.no_grad():
-                tokens[dname, impl] = sess.model.backbone(x)
-            if (dname, impl) == ("f32", "eager"):
-                eager32 = sess
-            del sess
+                tokens[dname, path] = sess.model.backbone(x)
+    eager32 = sessions["f32"]  # left on the eager path
     for dname in ("f32", "bf16"):
-        err, rel = rel_err(tokens[dname, "fused"], tokens[dname, "eager"])
+        err, rel = rel_err(tokens[dname, impl], tokens[dname, "eager"])
+        checked = dname == "f32" or bf16_tokens
         ok = rel <= SERVE_TOKEN_TOL[dname]
-        print(f"serve: {dname} backbone tokens kernel path vs eager path: max_abs={err:.4e} "
-              f"rel={rel:.4e} tol={SERVE_TOKEN_TOL[dname]:.0e} {'ok' if ok else 'FAIL'}")
-        if not ok:
-            fail(f"{dname} backbone tokens of the kernel path disagree with the eager path")
+        print(f"{tag}: {dname} backbone tokens kernel path vs eager path: max_abs={err:.4e} "
+              f"rel={rel:.4e} " + (f"tol={SERVE_TOKEN_TOL[dname]:.0e} {'ok' if ok else 'FAIL'}"
+                                   if checked else "(two dtype flows by design: not held)"))
+        if checked and not ok:
+            fail(f"{tag}: {dname} backbone tokens of the kernel path disagree with the eager path")
 
     # noise floors in mm (see SERVE_MM_SLACK): the eager f32 model's heads on
     # given tokens, its backbone swapped out for the duration
@@ -500,29 +643,110 @@ def serve(torch, fb):
             eager32.model.backbone = backbone
 
     base = tokens["f32", "eager"]
-    delta = (tokens["f32", "fused"] - base).flatten()
+    delta = (tokens["f32", impl] - base).flatten()
     gen = torch.Generator().manual_seed(0)
     shifts = [head_mm(base + delta[torch.randperm(delta.numel(), generator=gen).to(DEV)]
                       .reshape(base.shape)) for _ in range(WITNESSES)]
-    print(f"serve: f32 head on eager tokens + permuted kernel-path token difference: "
+    print(f"{tag}: f32 head on eager tokens + permuted kernel-path token difference: "
           f"joint_cam moves {', '.join(f'{v:.4f}' for v in shifts)} mm; on the kernel "
-          f"path's own tokens {head_mm(tokens['f32', 'fused']):.4f} mm, on the eager "
+          f"path's own tokens {head_mm(tokens['f32', impl]):.4f} mm, on the eager "
           f"path's own {head_mm(base):.4f} mm")
     floor = {"f32": max(shifts),
              "bf16": float(np.abs(jc["bf16", "eager"] - jc["f32", "eager"]).max())}
-    print(f"serve: joint_cam noise floor f32 {floor['f32']:.4f} mm, bf16 (|eager bf16 - "
+    print(f"{tag}: joint_cam noise floor f32 {floor['f32']:.4f} mm, bf16 (|eager bf16 - "
           f"eager f32|) {floor['bf16']:.4f} mm; max|joint_cam| = "
           f"{float(np.abs(jc['f32', 'eager']).max()):.1f} mm")
     for dname in ("f32", "bf16"):
-        err = float(np.abs(jc[dname, "fused"] - jc[dname, "eager"]).max())
+        err = float(np.abs(jc[dname, impl] - jc[dname, "eager"]).max())
         tol = 2 * floor[dname] + SERVE_MM_SLACK[dname]
         ok = err <= tol
-        print(f"serve: {dname} joint_cam kernel path vs eager path: max_abs={err:.4f} mm, "
+        print(f"{tag}: {dname} joint_cam kernel path vs eager path: max_abs={err:.4f} mm, "
               f"tol={tol:.4f} mm {'ok' if ok else 'FAIL'}")
         if not ok:
-            fail(f"{dname} kernel path disagrees with the eager path")
-    del eager32
-    return s1, s8, request, counts, forwards
+            fail(f"{tag}: {dname} kernel path disagrees with the eager path")
+    for sess in sessions.values():
+        sess.model.backbone.set_attention_impl(impl)
+
+
+def serve_realtime(torch, launches):
+    """Phase 5: the flagship model with realtime temporal encoders (random
+    temporal weights, so they change the output) over RT_T frames, through
+    PoserSession on the attention-only kernel, b1 and b8."""
+    import numpy as np
+
+    from cs_vit_tpu_torch.config import FinetuneConfig
+    from cs_vit_tpu_torch.serving import PoserSession
+
+    cfg = FinetuneConfig(exp="chip_smoke", backbone=BACKBONE, img_size=IMG, phase="inference",
+                         temporal_supervision="realtime", temporal_init_method="random",
+                         attention_impl="pallas")
+    rng = np.random.default_rng(1)
+    T = RT_T
+
+    def request(N):
+        x0 = rng.uniform(40, 200, size=(N, T, 1)).astype(np.float32)
+        y0 = rng.uniform(40, 200, size=(N, T, 1)).astype(np.float32)
+        side = rng.uniform(120, 300, size=(N, T, 1)).astype(np.float32)
+        ts = np.cumsum(rng.uniform(25, 45, size=(N, T)), axis=1).astype(np.float32)
+        return (
+            rng.uniform(size=(N, T, IMG, IMG, 3)).astype(np.float32),
+            np.concatenate([x0, y0, x0 + side, y0 + side], -1),
+            ts,
+            rng.uniform(500, 700, size=(N, T, 2)).astype(np.float32),
+            rng.uniform(200, 320, size=(N, T, 2)).astype(np.float32),
+        )
+
+    s8 = PoserSession(cfg, batch_size=8, seq_len=T, dtype="bfloat16", device=DEV)
+    s1 = PoserSession(cfg, batch_size=1, seq_len=T, dtype="bfloat16", device=DEV)
+    s8.warmup()
+    s1.warmup()
+    sync(torch)
+    requests = [(s8, request(8)), (s8, request(11)), (s1, request(3))]
+    forwards = sum(math.ceil(r[0].shape[0] / s.batch_size) for s, r in requests)
+    launches.reset_launch_counts()
+    outs = [s.predict_crops(*r) for s, r in requests]
+    sync(torch)
+    counts = launches.launch_counts()
+    print(f"serve_rt{T}: {forwards} forwards, launches {json.dumps(counts)}")
+    depth = sum(s8.model.backbone.config.depths)
+    # blocks whose image splits into more than one window: "hybrid" runs the
+    # kernel there (Swin-B-256: stages 0 and 1)
+    multi = sum(n for _, res, _, _, ws, _, n in GEOMS if res > ws)
+    if DEV == "cuda":
+        if counts["fused_window_attention"] != depth * forwards or any(
+                v for k, v in counts.items() if k != "fused_window_attention"):
+            fail(f"serve_rt{T}: expected {depth} fused_window_attention launches per forward "
+                 f"and no other kernel, got {counts}")
+    for (s, r), out in zip(requests, outs):
+        N = r[0].shape[0]
+        for key, tail in (("joint_cam", (21, 3)), ("verts_cam", (778, 3))):
+            if out[key].shape != (N, 1) + tail or not np.isfinite(out[key]).all():
+                fail(f"serve_rt{T}: {key} has shape {out[key].shape} or non-finite values")
+    print(f"serve_rt{T}: joint_cam finite, shapes [N,1,21,3] for N = 8, 11 (padded), 3 (b1)")
+
+    s8.model.backbone.set_attention_impl("hybrid")
+    launches.reset_launch_counts()
+    s8.predict_crops(*request(8))
+    sync(torch)
+    hybrid = launches.launch_counts()
+    s8.model.backbone.set_attention_impl("pallas")
+    print(f"serve_rt{T}: hybrid, one forward: launches {json.dumps(hybrid)}")
+    if DEV == "cuda" and (hybrid["fused_window_attention"] != multi
+                          or any(v for k, v in hybrid.items() if k != "fused_window_attention")):
+        fail(f"serve_rt{T}: hybrid expected {multi} fused_window_attention launches and no "
+             f"other kernel, got {hybrid}")
+
+    # kernel path vs eager path from calibrated BatchNorm statistics (see
+    # CALIBRATION_FORWARDS), the same in both sessions
+    f32 = PoserSession(cfg, batch_size=8, seq_len=T, dtype="float32", device=DEV)
+    calibrate_statistics(torch, f32.model, temporal_batch(torch, 8, T, seed=30),
+                         ("spatial", "temporal"))
+    s8.model.load_state_dict({k: v for k, v in f32.model.state_dict().items()
+                              if k.endswith(("running_mean", "running_var"))}, strict=False)
+    compare_paths(torch, f"serve_rt{T}", {"bf16": s8, "f32": f32}, "pallas", request(8),
+                  bf16_tokens=False)
+    del f32
+    return s1, s8, request, counts
 
 
 def train_batch(torch, B, seed):
@@ -569,11 +793,11 @@ def with_impl(model, impl):
     return out
 
 
-def new_step(torch, model, compute_dtype):
+def new_step(torch, model, compute_dtype, phase="spatial", lr=TRAIN_LR):
     from cs_vit_tpu_torch.train import TrainState, build_optimizer, make_train_step
 
-    state = TrainState.create(model, build_optimizer(model, "spatial", TRAIN_LR))
-    return state, make_train_step(model, state.optimizer, "spatial", compute_dtype=compute_dtype)
+    state = TrainState.create(model, build_optimizer(model, phase, lr))
+    return state, make_train_step(model, state.optimizer, phase, compute_dtype=compute_dtype)
 
 
 def check_train(torch, fb, model, B=8):
@@ -643,7 +867,8 @@ def check_train(torch, fb, model, B=8):
 
 
 def check_nan_skip(torch, state, step, batch):
-    """Phase 7: a batch with a NaN target leaves the state bit-identical."""
+    """A batch with a NaN target (in a supervised frame) leaves the state
+    bit-identical (phases 6 and 7)."""
     import copy
 
     model, opt = state.model, state.optimizer
@@ -651,7 +876,7 @@ def check_nan_skip(torch, state, step, batch):
     opt_before = copy.deepcopy(opt.state_dict())
     steps = state.step
     bad = dict(batch, joint_cam=batch["joint_cam"].clone())
-    bad["joint_cam"][0, 0, 0, 0] = float("nan")
+    bad["joint_cam"][0, -1, 0, 0] = float("nan")  # a supervised frame in every mode
     state, met = step(state, bad, torch.Generator(device=DEV).manual_seed(6))
     sync(torch)
     after = opt.state_dict()
@@ -665,12 +890,14 @@ def check_nan_skip(torch, state, step, batch):
         fail("a NaN batch changed the train state")
 
 
-def train_curve(torch, fb, state, step, batch, n):
-    """Phase 8: n bf16 steps on one fixed batch, with the same droppath draws
-    in every step (one fixed objective); the loss must fall. Returns the step
-    times (ms) and the launch counts of the last step, and prints the device
-    memory that step holds above what stays resident (weights, AdamW state)."""
-    losses, times, counts = [], [], None
+def train_curve(torch, fb, state, step, batch, n, tag="train"):
+    """n bf16 steps on one fixed batch, with the same droppath draws in every
+    step (one fixed objective); the loss must fall. Returns the step times
+    (ms), the launch counts of the last step (`fb`: anything with
+    ``reset_launch_counts``/``launch_counts``) and the device memory that
+    step holds above what stays resident (weights, AdamW state), in bytes
+    (None off the card)."""
+    losses, times, counts, peak = [], [], None, None
     gen = torch.Generator(device=DEV)
     for i in range(n):
         gen.manual_seed(7)
@@ -687,16 +914,157 @@ def train_curve(torch, fb, state, step, batch, n):
         if i == n - 1:
             counts = fb.launch_counts()
             if DEV == "cuda":
-                print(f"train: one step's peak device memory above the resident "
-                      f"{resident / 2**30:.2f} GiB: "
-                      f"{(torch.cuda.max_memory_allocated() - resident) / 2**30:.2f} GiB")
+                peak = torch.cuda.max_memory_allocated() - resident
+                print(f"{tag}: one step's peak device memory above the resident "
+                      f"{resident / 2**30:.2f} GiB: {peak / 2**30:.2f} GiB")
         losses.append(float(met["loss"]))
-    print("train: loss curve " + " ".join(f"{v:.3f}" for v in losses))
+    print(f"{tag}: loss curve " + " ".join(f"{v:.3f}" for v in losses))
     first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
     if not (all(math.isfinite(v) for v in losses) and last < TRAIN_FALL * first):
-        fail(f"the loss did not fall: first three {first:.4f}, last three {last:.4f}")
-    print(f"train: mean loss of the first three steps {first:.4f}, of the last three {last:.4f}")
-    return times, counts
+        fail(f"{tag}: the loss did not fall: first three {first:.4f}, last three {last:.4f}")
+    print(f"{tag}: mean loss of the first three steps {first:.4f}, of the last three {last:.4f}")
+    return times, counts, peak
+
+
+def temporal_batch(torch, B, T, seed):
+    """A seeded batch of B samples of T frames on the card, timestamps ~33 ms
+    apart."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    jc = rng.normal(scale=20.0, size=(B, T, 21, 3)).astype(np.float32)
+    jc[..., 2] += 400.0
+    x0 = rng.uniform(40, 200, size=(B, T, 2)).astype(np.float32)
+    side = rng.uniform(120, 300, size=(B, T, 1)).astype(np.float32)
+    batch = {
+        "patches": rng.uniform(size=(B, T, IMG, IMG, 3)).astype(np.float32),
+        "square_bboxes": np.concatenate([x0, x0 + side], -1),
+        "timestamp": np.cumsum(rng.uniform(25, 45, size=(B, T)), axis=1).astype(np.float32),
+        "focal": rng.uniform(500, 700, size=(B, T, 2)).astype(np.float32),
+        "princpt": rng.uniform(200, 320, size=(B, T, 2)).astype(np.float32),
+        "joint_cam": jc,
+        "joint_valid": np.ones((B, T, 21), np.float32),
+        "mano_shape": rng.normal(scale=0.5, size=(B, T, 10)).astype(np.float32),
+    }
+    return {k: torch.from_numpy(v).to(DEV) for k, v in batch.items()}
+
+
+def temporal_model(torch, sup, seed=0):
+    """The flagship Poser with `sup` temporal encoders (random temporal
+    weights) and seeded random f32 weights on the card, on the attention-only
+    kernel."""
+    from cs_vit_tpu_torch.cli.common import build_model
+    from cs_vit_tpu_torch.config import FinetuneConfig
+    from cs_vit_tpu_torch.models import init_poser_weights
+
+    cfg = FinetuneConfig(exp="chip_smoke", backbone=BACKBONE, img_size=IMG, phase="temporal",
+                         temporal_supervision=sup, temporal_init_method="random",
+                         attention_impl="pallas")
+    model = build_model(cfg)
+    init_poser_weights(model, seed)
+    return model.to(DEV)
+
+
+def calibrate_statistics(torch, model, batch, phases=("spatial",)):
+    """CALIBRATION_FORWARDS forwards without autograd in each of `phases`, in
+    that order."""
+    with torch.no_grad():
+        for phase_name in phases:
+            for _ in range(CALIBRATION_FORWARDS):
+                model(batch, phase_name)
+    sync(torch)
+
+
+def saved_bytes(torch, step, state, batch):
+    """Bytes autograd saves for backward during one step (which is taken)."""
+    total = [0]
+
+    def pack(t):
+        total[0] += t.numel() * t.element_size()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        step(state, batch, None)
+    sync(torch)
+    return total[0]
+
+
+def check_temporal(torch, launches, sup, T, B=8):
+    """Phase 7: the temporal step at batch B over T frames, only the temporal
+    encoders training, after calibrate_statistics: the f32 backbone tokens
+    and the f32 step of the attention-kernel path against the eager path,
+    then TEMPORAL_STEPS bf16 steps on one batch (the loss falls, the
+    launches of one step, no backbone activations saved, every frozen
+    parameter and statistic bit-identical, the NaN skip). Returns (median
+    step ms, launch counts of one step, peak bytes of one step, saved bytes
+    of one step)."""
+    tag = f"temporal_{sup}{T}"
+    prefixes = ("pose_temporal_encoder", "shape_temporal_encoder", "root_temporal_encoder")
+    model = temporal_model(torch, sup)
+    batch = temporal_batch(torch, B, T, seed=20 + T)
+    calibrate_statistics(torch, model, batch)
+    x = batch["patches"].reshape((B * T,) + tuple(batch["patches"].shape[2:]))
+    x = (x - model.img_mean) / model.img_std
+    tokens = {}
+    with torch.no_grad():
+        for impl in ("pallas", "eager"):
+            model.backbone.set_attention_impl(impl)
+            tokens[impl] = model.backbone(x)
+    model.backbone.set_attention_impl("pallas")
+    err, rel = rel_err(tokens["pallas"], tokens["eager"])
+    ok = rel <= SERVE_TOKEN_TOL["f32"]
+    print(f"{tag}: f32 backbone tokens kernel path vs eager path ({B * T} images): "
+          f"max_abs={err:.4e} rel={rel:.4e} tol={SERVE_TOKEN_TOL['f32']:.0e} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{tag}: f32 backbone tokens of the kernel path disagree with the eager path")
+    del tokens, x
+    res = {}
+    for impl in ("pallas", "eager"):
+        m = with_impl(model, impl)
+        state, step = new_step(torch, m, None, "temporal", TEMPORAL_LR)
+        state, met = step(state, batch, None)
+        res[impl] = (float(met["loss"]), float(met["grad_norm"]))
+        if state.step != 1 or not all(math.isfinite(v) for v in res[impl]):
+            fail(f"{tag}: {impl} f32 step: step {state.step}, loss/grad_norm {res[impl]}")
+        print(f"{tag}: {impl} f32 step: loss {res[impl][0]:.6f} grad_norm {res[impl][1]:.6f}")
+        del m, state, step
+    for i, what in enumerate(("loss", "grad_norm")):
+        truth = res["eager"][i]
+        err = abs(res["pallas"][i] - truth)
+        ok = err <= TRAIN_F32_TOL * abs(truth)
+        print(f"{tag}: f32 {what} kernel path vs eager path: |diff| {err:.6f} "
+              f"(rel {err / abs(truth):.3e}, tol {TRAIN_F32_TOL:.0e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"{tag}: f32 step {what} of the kernel path disagrees with the eager path")
+
+    frozen = {k: v.clone() for k, v in model.state_dict().items() if not k.startswith(prefixes)}
+    state, step = new_step(torch, model, torch.bfloat16, "temporal", TEMPORAL_LR)
+    print(f"{tag}: AdamW lr {TEMPORAL_LR} (constant), {TEMPORAL_STEPS} bf16 steps on one batch "
+          f"of {B} x {T} frames")
+    times, counts, peak = train_curve(torch, launches, state, step, batch, TEMPORAL_STEPS, tag)
+    print(f"{tag}: launches in one step {json.dumps(counts)}")
+    depth = sum(model.backbone.config.depths)
+    if DEV == "cuda" and (counts["fused_window_attention"] != depth
+                          or any(v for k, v in counts.items() if k != "fused_window_attention")):
+        fail(f"{tag}: expected {depth} fused_window_attention launches per step and no other "
+             f"kernel, got {counts}")
+    saved = saved_bytes(torch, step, state, batch)
+    trained = sum(p.numel() * 2 for p in state.optimizer.params())  # their bf16 copies
+    print(f"{tag}: autograd saved {saved / 2**20:.1f} MiB in one step (the bf16 copies of the "
+          f"trained parameters: {trained / 2**20:.1f} MiB)")
+    if saved > trained + TEMPORAL_SAVED_MAX:
+        fail(f"{tag}: one step saved {saved} bytes for backward: more than the trained "
+             f"parameters' copies and {TEMPORAL_SAVED_MAX} bytes of activations")
+    changed = [k for k, v in model.state_dict().items()
+               if k in frozen and not torch.equal(v, frozen[k])]
+    print(f"{tag}: {len(frozen)} frozen parameters and statistics bit-identical after "
+          f"{state.step} steps: {not changed}")
+    if changed:
+        fail(f"{tag}: frozen state changed: {changed[:5]}")
+    check_nan_skip(torch, state, step, batch)
+    step_ms = statistics.median(times[3:])
+    return step_ms, counts, peak, saved
 
 
 def device_profile(torch, prof):
@@ -851,6 +1219,101 @@ def time_bwd_kernels(torch, fb, F, B=8, iters=10):
     return tot
 
 
+def time_window_attention(torch, wa, F, B=8, T=RT_T):
+    """The attention-only kernel at the realtime serving path's shapes (B
+    samples of T frames, bf16), summed over the 24 blocks, beside its plain
+    version, one library call (SDPA on pre-normalised, pre-scaled q^ with
+    the float bias as attn_mask, scale 1) and its bound."""
+    bf = torch.bfloat16
+    r = {k: 0.0 for k in ("ms", "plain_ms", "library_ms", "bytes_s", "flops_s", "bound_ms")}
+    for stage, res, C, heads, ws, shift, n_blocks in GEOMS:
+        q, k, v, bias, scale = window_attention_inputs(torch, B * T, res, C, heads, ws, shift, bf,
+                                                       seed=300 + stage)
+        B_, L, nW = q.shape[0], ws * ws, (res // ws) ** 2
+        ms = cuda_ms(torch, lambda: wa.fused_window_attention(q, k, v, bias, scale))
+        plain = cuda_ms(torch, lambda: wa.fused_window_attention_reference(q, k, v, bias, scale))
+        qn = (F.normalize(q.float(), dim=-1) * scale.reshape(1, heads, 1, 1)).to(bf)
+        kn = F.normalize(k.float(), dim=-1).to(bf)
+        mask = bias.to(bf)[None].expand(B * T, nW, heads, L, L).reshape(B_, heads, L, L)
+        lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(qn, kn, v, attn_mask=mask,
+                                                                     scale=1.0))
+        # q, k, v in, out written, at their dtype; the bias at its size and dtype
+        nbytes = 4 * q.numel() * q.element_size() + bias.numel() * bias.element_size() + heads * 4
+        flops = 4 * (B_ * L) * L * C
+        tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / PEAK_FLOPS["bf16"] * 1e3
+        print(f"timed stage{stage} shift{shift} fused_window_attention B_{B_} L{L} heads{heads} "
+              f"bias {bias.dtype}: {ms:.4f} ms, plain {plain:.4f} ms, library {lib:.4f} ms, "
+              f"bound {max(tb, tf):.4f} ms ({'bytes' if tb >= tf else 'operations'}) "
+              f"x{n_blocks} blocks")
+        for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("bytes_s", tb),
+                         ("flops_s", tf), ("bound_ms", max(tb, tf))):
+            r[key] += n_blocks * val
+        del q, k, v, bias, qn, kn, mask
+    return r
+
+
+def check_probe(torch, po):
+    """Phase 8: the probe kernel against its plain version in its three modes
+    at the probe's own shapes; returns the worst max_abs."""
+    from cs_vit_tpu_torch.tools.probe_overlap import make_inputs
+
+    a, w, x = make_inputs(DEV)
+    worst = 0.0
+    for mode in po.MODES:
+        acc, vec = po.probe_overlap(a, w, x, mode)
+        racc, rvec = po.probe_overlap_reference(a, w, x, mode)
+        sync(torch)
+        err_a, rel_a = rel_err(acc, racc)
+        err_v = (vec - rvec).abs().max().item()
+        rel_v = ((vec - rvec).abs() / rvec.abs().clamp_min(1e-30)).max().item()
+        ok = rel_a <= PROBE_TOL["acc"] and rel_v <= PROBE_TOL["vec"]
+        print(f"check probe {mode}: acc max_abs={err_a:.3e} rel={rel_a:.3e} "
+              f"tol={PROBE_TOL['acc']:.0e}; vec max_abs={err_v:.3e} max rel={rel_v:.3e} "
+              f"tol={PROBE_TOL['vec']:.0e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"probe_overlap ({mode}) disagrees with its plain version")
+        worst = max(worst, err_a, err_v)
+    return worst
+
+
+def probe_entry(torch, po):
+    """The probe through its entry point (``python -m
+    cs_vit_tpu_torch.tools.probe_overlap``): its three times and launches."""
+    from cs_vit_tpu_torch.tools import probe_overlap as tool
+
+    po.reset_launch_counts()
+    ms = tool.main() if DEV == "cuda" else tool.run("cpu", iters=1, repeats=1)
+    sync(torch)
+    launches = po.launch_counts()["probe_overlap"]
+    print(f"probe: launches through the entry point {launches}")
+    if DEV == "cuda" and launches == 0:
+        fail("the probe's entry point launched no probe_overlap kernel")
+    return ms, launches
+
+
+def probe_bound(torch, po, repeats):
+    """(bound ms, what bounds it) of one "both" call: the larger of the
+    products' FLOPs at the bf16 tensor-core peak, the exp2 count
+    at the SFU rate (SFU_PER_CLOCK_PER_SM x SMs x the maximum SM clock that
+    nvidia-smi reports), the bytes of a, w, x and the two outputs."""
+    from cs_vit_tpu_torch.tools.probe_overlap import V
+
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         check=True)
+    clock_hz = float(out.stdout.strip().splitlines()[0]) * 1e6
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mma = po.PRODUCTS * 2 * po.N ** 3 * repeats / PEAK_FLOPS["bf16"] * 1e3
+    exp = po.EXP_PASSES * V * 512 * repeats / (SFU_PER_CLOCK_PER_SM * sms * clock_hz) * 1e3
+    nbytes = 3 * po.N * po.N * 2 + 2 * V * 512 * 4
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"probe bound: products {mma:.4f} ms at {PEAK_FLOPS['bf16'] / 1e12:.0f} TFLOP/s, exp "
+          f"{exp:.4f} ms at {SFU_PER_CLOCK_PER_SM} x {sms} SMs x {clock_hz / 1e6:.0f} MHz, bytes "
+          f"{tb:.4f} ms")
+    bound = max(mma, exp, tb)
+    return bound, "bytes" if bound == tb else "operations"
+
+
 def serve_latency(torch, s1, s8, request):
     out = {}
     for name, sess in (("b1", s1), ("b8", s8)):
@@ -870,7 +1333,7 @@ def serve_latency(torch, s1, s8, request):
     return out
 
 
-def profile_forward(torch, s8, request, latency_ms):
+def profile_forward(torch, s8, request, latency_ms, tag="profile"):
     """Device time by kernel over one b8 forward (torch.profiler / CUPTI)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -884,13 +1347,13 @@ def profile_forward(torch, s8, request, latency_ms):
         wall = (time.perf_counter() - t0) * 1e3
     busy, kernels, ops = device_profile(torch, prof)
     if busy == 0:
-        print("profile: no device time recorded (not measured)")
+        print(f"{tag}: no device time recorded (not measured)")
         return
-    print(f"profile: b8 forward wall {wall:.3f} ms, device busy {busy:.3f} ms "
+    print(f"{tag}: b8 forward wall {wall:.3f} ms, device busy {busy:.3f} ms "
           f"({sum(r[1] for r in kernels)} kernels; idle share {max(0.0, 1 - busy / wall):.3f}; "
           f"against the unprofiled median {latency_ms:.3f} ms: "
           f"{max(0.0, 1 - busy / latency_ms):.3f})")
-    print_profile("profile", kernels, ops)
+    print_profile(tag, kernels, ops)
 
 
 def main() -> int:
@@ -904,80 +1367,132 @@ def main() -> int:
 
     from cs_vit_tpu_torch.ops import _build
     from cs_vit_tpu_torch.ops import fused_block as fb
+    from cs_vit_tpu_torch.ops import probe_overlap as po
+    from cs_vit_tpu_torch.ops import window_attention as wa
+    from cs_vit_tpu_torch.tools.probe_overlap import make_inputs
 
+    launches = Launches(fb, wa, po)
     card = nvidia_smi_line()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    t0 = time.perf_counter()
-    secs = _build.build()
-    print(f"build: {json.dumps(secs)} (wall {time.perf_counter() - t0:.1f} s)")
-    for name in secs:
-        log = _build.library_path(name).with_name(_build.library_path(name).name + ".log")
-        if log.exists():
-            for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line or "Compiling entry" in line:
-                    print(f"ptxas {name}: {line.strip()}")
+    with phase("build"):
+        secs = _build.build()
+        print(f"build: {json.dumps(secs)}")
+        for name in secs:
+            log = _build.library_path(name).with_name(_build.library_path(name).name + ".log")
+            if log.exists():
+                for line in log.read_text().splitlines():
+                    if "registers" in line or "spill" in line or "Compiling entry" in line:
+                        print(f"ptxas {name}: {line.strip()}")
 
-    worst = check_kernels(torch, fb)
-    s1, s8, request, counts, forwards = serve(torch, fb)
+    with phase("check"):
+        worst = check_kernels(torch, fb, wa)
+        check_window_attention_refuses_grad(torch, wa)
+    with phase("serve"):
+        s1, s8, request, counts, forwards = serve(torch, fb)
+    with phase("serve_rt"):
+        r1, r8, rt_request, rt_counts = serve_realtime(torch, launches)
 
-    model = train_model(torch)
-    check_train(torch, fb, model)
-    batch = train_batch(torch, 8, seed=10)
-    state, step = new_step(torch, model, torch.bfloat16)
-    times, train_counts = train_curve(torch, fb, state, step, batch, TRAIN_STEPS)
-    check_nan_skip(torch, state, step, batch)
-    depth = sum(model.backbone.config.depths)
-    expect = {"FusedSwinBlock": depth, "gemm_dgrad": 4 * depth, "gemm_wgrad": 4 * depth,
-              "ln_residual_bwd": 2 * depth, "window_attention_bwd": depth,
-              "fused_swin_block": depth, "gemm_bias_act": 5 * depth,
-              "ln_residual": 2 * depth, "window_attention": depth}
-    print(f"train: launches in one step {json.dumps(train_counts)}")
-    for name, per in expect.items():
-        if train_counts[name] != per:
-            fail(f"{name}: {train_counts[name]} launches in one train step, expected {per}")
-    step_ms = statistics.median(times[3:])
-    print(f"train_step_ms_b8 {step_ms:.3f} (min {min(times[3:]):.3f}, "
-          f"{len(times) - 3} steps after 3 of warm-up)")
-    print(f"train_crops_per_s_b8 {8e3 / step_ms:.1f}")
-    profile_step(torch, state, step, batch, step_ms)
-    del model, state, step, batch
+    with phase("train"):
+        model = train_model(torch)
+        check_train(torch, fb, model)
+        batch = train_batch(torch, 8, seed=10)
+        state, step = new_step(torch, model, torch.bfloat16)
+        times, train_counts, spatial_peak = train_curve(torch, fb, state, step, batch, TRAIN_STEPS)
+        check_nan_skip(torch, state, step, batch)
+        depth = sum(model.backbone.config.depths)
+        expect = {"FusedSwinBlock": depth, "gemm_dgrad": 4 * depth, "gemm_wgrad": 4 * depth,
+                  "ln_residual_bwd": 2 * depth, "window_attention_bwd": depth,
+                  "fused_swin_block": depth, "gemm_bias_act": 5 * depth,
+                  "ln_residual": 2 * depth, "window_attention": depth}
+        print(f"train: launches in one step {json.dumps(train_counts)}")
+        for name, per in expect.items():
+            if train_counts[name] != per:
+                fail(f"{name}: {train_counts[name]} launches in one train step, expected {per}")
+        step_ms = statistics.median(times[3:])
+        print(f"train_step_ms_b8 {step_ms:.3f} (min {min(times[3:]):.3f}, "
+              f"{len(times) - 3} steps after 3 of warm-up)")
+        print(f"train_crops_per_s_b8 {8e3 / step_ms:.1f}")
+        profile_step(torch, state, step, batch, step_ms)
+        del model, state, step, batch
 
-    tot = time_kernels(torch, fb, F)
-    tot.update(time_bwd_kernels(torch, fb, F))
-    lat = serve_latency(torch, s1, s8, request)
-    print(f"serve_b1_ms {lat['b1']:.3f} (min {lat['b1_min']:.3f})")
-    print(f"serve_b8_ms {lat['b8']:.3f} (min {lat['b8_min']:.3f})")
-    print(f"crops_per_s_b8 {lat['crops_per_s_b8']:.1f}")
-    profile_forward(torch, s8, request, lat["b8"])
+    with phase("temporal"):
+        temporal = {name: check_temporal(torch, launches, sup, T)
+                    for name, sup, T in ((f"rt{RT_T}", "realtime", RT_T),
+                                         (f"full{FULL_T}", "full", FULL_T))}
+        for name, (ms, step_counts, peak, saved) in temporal.items():
+            print(f"temporal_{name}_step_ms_b8 {ms:.3f}")
+            print(f"temporal_{name}: launches per step {json.dumps(step_counts)}; peak device "
+                  f"memory of one step {peak / 2**30:.3f} GiB (spatial step: "
+                  f"{spatial_peak / 2**30:.3f} GiB); autograd saved {saved / 2**20:.1f} MiB")
+
+    with phase("probe"):
+        probe_err = check_probe(torch, po)
+        probe_ms, probe_launches = probe_entry(torch, po)
+
+    with phase("timing"):
+        tot = time_kernels(torch, fb, F)
+        tot.update(time_bwd_kernels(torch, fb, F))
+        tot["fused_window_attention"] = time_window_attention(torch, wa, F)
+        a, w, x = make_inputs(DEV)
+        bound, bound_by = probe_bound(torch, po, 64)
+        plain = cuda_ms(torch, lambda: po.probe_overlap_reference(a, w, x, "both", 64),
+                        iters=2, warmup=1)
+        print(f"timed probe_overlap both: {probe_ms['both']:.4f} ms (entry point), plain "
+              f"{plain:.4f} ms, bound {bound:.4f} ms ({bound_by}); mma {probe_ms['mma']:.4f} "
+              f"ms, exp {probe_ms['exp']:.4f} ms, serial sum {probe_ms['serial']:.4f} ms, "
+              f"perfect overlap {probe_ms['overlap']:.4f} ms")
+        lat = serve_latency(torch, s1, s8, request)
+        print(f"serve_b1_ms {lat['b1']:.3f} (min {lat['b1_min']:.3f})")
+        print(f"serve_b8_ms {lat['b8']:.3f} (min {lat['b8_min']:.3f})")
+        print(f"crops_per_s_b8 {lat['crops_per_s_b8']:.1f}")
+        profile_forward(torch, s8, request, lat["b8"])
+        rt_lat = serve_latency(torch, r1, r8, rt_request)
+        print(f"serve_rt{RT_T}_b1_ms {rt_lat['b1']:.3f} (min {rt_lat['b1_min']:.3f})")
+        print(f"serve_rt{RT_T}_b8_ms {rt_lat['b8']:.3f} (min {rt_lat['b8_min']:.3f})")
+        profile_forward(torch, r8, rt_request, rt_lat["b8"], tag=f"profile_rt{RT_T}")
 
     # launches: the forward kernels' from the serving run, the backward
-    # kernels' from one train step
-    launches = {"gemm_bias_act": counts["gemm_bias_act"], "ln_residual": counts["ln_residual"],
-                "swin_window_attn_fwd": counts["window_attention"],
-                "gemm_dgrad": train_counts["gemm_dgrad"],
-                "gemm_wgrad": train_counts["gemm_wgrad"],
-                "ln_residual_bwd": train_counts["ln_residual_bwd"],
-                "swin_window_attn_bwd": train_counts["window_attention_bwd"]}
+    # kernels' from one spatial train step, the attention-only kernel's from
+    # the realtime serving run, the probe's from its entry point
+    launches_of = {"gemm_bias_act": counts["gemm_bias_act"], "ln_residual": counts["ln_residual"],
+                   "swin_window_attn_fwd": counts["window_attention"],
+                   "gemm_dgrad": train_counts["gemm_dgrad"],
+                   "gemm_wgrad": train_counts["gemm_wgrad"],
+                   "ln_residual_bwd": train_counts["ln_residual_bwd"],
+                   "swin_window_attn_bwd": train_counts["window_attention_bwd"],
+                   "fused_window_attention": rt_counts["fused_window_attention"]}
+    source = {"gemm_bias_act": KERNEL_SOURCE, "ln_residual": KERNEL_SOURCE,
+              "swin_window_attn_fwd": KERNEL_SOURCE, "fused_window_attention": WA_SOURCE}
+    replaces = {"gemm_bias_act": REPLACES, "ln_residual": REPLACES,
+                "swin_window_attn_fwd": REPLACES, "fused_window_attention": WA_REPLACES}
+    per = {"gemm_bias_act": "b8 forward", "ln_residual": "b8 forward",
+           "swin_window_attn_fwd": "b8 forward",
+           "fused_window_attention": f"b8 x {RT_T}-frame realtime forward"}
     kernels = []
     for name, r in tot.items():
-        fwd = name in ("gemm_bias_act", "ln_residual", "swin_window_attn_fwd")
-        print(f"kernel {name}: per {'b8 forward' if fwd else 'b8 train step'} {r['ms']:.3f} ms, "
+        print(f"kernel {name}: per {per.get(name, 'b8 train step')} {r['ms']:.3f} ms, "
               f"plain {r['plain_ms']:.3f} ms, "
               f"library {r['library_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
               f"(bytes {r['bytes_s']:.4f} ms, operations {r['flops_s']:.4f} ms)")
         kernels.append({
             "name": name, "route": "cuda",
-            "source": KERNEL_SOURCE if fwd else BWD_KERNEL_SOURCE,
-            "replaces": REPLACES if fwd else BWD_REPLACES,
-            "launches": launches[name], "max_abs_err": worst[name],
+            "source": source.get(name, BWD_KERNEL_SOURCE),
+            "replaces": replaces.get(name, BWD_REPLACES),
+            "launches": launches_of[name], "max_abs_err": worst[name],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "bytes" if r["bytes_s"] >= r["flops_s"] else "operations",
             "library_ms": r["library_ms"],
         })
+    kernels.append({
+        "name": "probe_overlap", "route": "cuda", "source": PROBE_SOURCE,
+        "replaces": PROBE_REPLACES, "launches": probe_launches, "max_abs_err": probe_err,
+        "ms": probe_ms["both"], "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
+        "library_ms": None,  # no single PyTorch call computes the chain
+    })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -37,12 +37,12 @@ def resolve_attention_impl(impl: str) -> str:
 
     ``"auto"`` stays ``"auto"``: each SwinV2 block then takes the CUDA kernels
     for CUDA tensors and the eager path for CPU tensors. The JAX package's
-    ``"xla"`` is this package's ``"eager"``; its ``"pallas"`` and ``"hybrid"``
-    (the attention-only kernel) are not ported yet and raise.
+    ``"xla"`` is this package's ``"eager"``; ``"fused"``, ``"pallas"`` and
+    ``"hybrid"`` keep their JAX meanings.
     """
     if impl == "xla":
         return "eager"
-    if impl in ("auto", "eager", "fused"):
+    if impl in ("auto", "eager", "fused", "pallas", "hybrid"):
         return impl
     raise ValueError(f"attention_impl {impl!r} is not available in cs_vit_tpu_torch")
 
@@ -67,6 +67,7 @@ def poser_config_from(cfg: FinetuneConfig) -> PoserConfig:
         num_temporal_layer=cfg.num_temporal_layer,
         temporal_init_method=cfg.temporal_init_method,
         temporal_supervision=cfg.temporal_supervision,
+        trope_scalar=cfg.trope_scalar,
         num_latent_layer=cfg.num_latent_layer,
         persp_embed_method=cfg.persp_embed_method,
         persp_decorate=cfg.persp_decorate,

@@ -61,7 +61,7 @@ class FinetuneConfig:
     mano_model_dir: Optional[str] = None
     dtype: str = "float32"
     # "auto" (kernels on CUDA tensors, eager on CPU tensors) | "eager" |
-    # "fused"; the JAX names "xla" (= "eager") are accepted
+    # "fused" | "pallas" | "hybrid"; the JAX name "xla" (= "eager") is accepted
     attention_impl: str = "auto"
     remat: bool = False
     tp: int = 1

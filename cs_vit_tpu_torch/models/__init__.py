@@ -1,5 +1,6 @@
 from .modules import (  # noqa: F401
     MHA,
+    CrossAttnDecoder,
     DecoderBlock,
     EncoderBlock,
     FeedForwardNetwork,

@@ -14,7 +14,9 @@ statistics but hand back their input's dtype.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -156,18 +158,59 @@ class DecoderBlock(nn.Module):
         return x + self.ffn(self.norm3(x, train))
 
 
-class PositionalEncoding(nn.Module):
-    """Learned absolute positional encoding (reference ``pe.weight`` [max_len, D]).
+class CrossAttnDecoder(nn.Module):
+    """The realtime temporal layer: the last frame's query attends to every
+    frame (``norm1`` -> ``cross_atten`` -> residual -> ``norm2`` -> ``ffn`` ->
+    residual). Its BatchNorms see [B, 1, D] query tokens: batch statistics
+    over B tokens."""
 
-    The continuous-time ``"trope"`` mode serves the realtime temporal
-    encoder, which a later slice of the port brings.
+    def __init__(self, dim: int, num_heads: int, compat_scale: bool = True):
+        super().__init__()
+        self.cross_atten = MHA(dim, num_heads, compat_scale)
+        self.ffn = FeedForwardNetwork(dim)
+        self.norm1 = TorchBatchNorm(dim)
+        self.norm2 = TorchBatchNorm(dim)
+
+    def forward(self, x: torch.Tensor, ref: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = x + self.cross_atten(self.norm1(x, train), ref)
+        return x + self.ffn(self.norm2(x, train))
+
+
+def rope_rotate_pairs(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Rotate adjacent feature pairs: x viewed as [..., d/2, 2]."""
+    x2 = x.reshape(*x.shape[:-1], -1, 2)
+    x1, xb = x2[..., 0], x2[..., 1]
+    return torch.stack([x1 * cos - xb * sin, x1 * sin + xb * cos], dim=-1).reshape(x.shape)
+
+
+class PositionalEncoding(nn.Module):
+    """Positional encoding, in one of two modes.
+
+    ``"absolute"``: a learned table (reference ``pe.weight`` [max_len, D])
+    added to the tokens. ``"trope"``: continuous-time RoPE with no
+    parameters; token values (not q/k) are rotated pair by pair by the phase
+    ``(t_last - t) * f_i`` with the frequency bank 10000^(-2i/D), phases and
+    tables in f32, the result in the tokens' dtype.
     """
 
     def __init__(self, d_model: int, max_len: int = 512, mode: str = "absolute"):
         super().__init__()
-        if mode != "absolute":
-            raise NotImplementedError(f"positional encoding mode {mode!r} is not ported")
-        self.pe = nn.Embedding(max_len, d_model)
+        self.mode = mode
+        if mode == "absolute":
+            self.pe = nn.Embedding(max_len, d_model)
+        elif mode == "trope":
+            if d_model % 2:
+                raise ValueError("d_model must be even for RoPE")
+            inv_freq = 1.0 / (10000.0 ** (np.arange(0, d_model, 2, dtype=np.float32) / d_model))
+            self.register_buffer("inv_freq", torch.from_numpy(inv_freq), persistent=False)
+        else:
+            raise ValueError(f"Unsupported position mode: {mode}")
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x + self.pe.weight[: x.shape[1]]
+    def forward(self, x: torch.Tensor, t: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.mode == "absolute":
+            return x + self.pe.weight[: x.shape[1]]
+        if t is None:
+            raise ValueError("t must be provided for 'trope' mode")
+        freqs = (t[:, -1:] - t)[..., None].float() * self.inv_freq   # [B, T, D/2]
+        # f32 phase tables must not promote bf16 activations
+        return rope_rotate_pairs(x, torch.cos(freqs), torch.sin(freqs)).to(x.dtype)

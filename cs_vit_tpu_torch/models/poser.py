@@ -2,17 +2,21 @@
 
 Port of ``cs_vit_tpu/models/poser.py``: ImageNet normalisation, the SwinV2
 backbone, the dense perspective ray grid and its encoder, the decoder-type
-spatial encoder, the temporal encoders in ``"full"`` mode (they run at T=1
-too), the pose/shape/root heads, 6D -> axis-angle and MANO FK to
-camera-space joints in mm; :meth:`Poser.forward` adds the training losses
+spatial encoder, the temporal encoders in both forms (``"full"``: every
+frame, absolute PE and encoder blocks, also at T=1; ``"realtime"``: the
+last frame only, continuous-time RoPE and cross-attention decoders), the
+pose/shape/root heads, 6D -> axis-angle and MANO FK to camera-space joints
+in mm; :meth:`Poser.forward` adds the training losses
 (:meth:`Poser.criterion`).
 
 The phase is an argument, as in the JAX package, not module state:
 ``"spatial"`` runs the backbone with droppath (drawn from the
 ``torch.Generator`` passed in), the perspective encoder and the spatial
 encoder with BatchNorm batch statistics, and skips the temporal encoders;
-``"temporal"`` cuts the gradient above the temporal encoders and runs their
-BatchNorms on batch statistics; ``"inference"`` uses running statistics and
+``"temporal"`` runs the backbone, the perspective encoder and the spatial
+encoder under ``torch.no_grad()`` (what JAX's ``stop_gradient`` above them
+amounts to: no autograd graph and no saved activations there) and the
+temporal encoders' BatchNorms on batch statistics; ``"inference"`` uses running statistics and
 no droppath, whatever ``nn.Module.training`` says.
 :func:`phase_trainable_params` gives the parameters each phase trains.
 
@@ -28,6 +32,7 @@ f32 rays) is cast to the patch dtype before it decorates the queries.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
@@ -39,7 +44,14 @@ from ..constants import IMAGENET_MEAN, IMAGENET_STD, TARGET_JOINTS_CONNECTION
 from ..core.geometry import matrix_to_axis_angle, rotation_6d_to_matrix, safe_norm
 from ..core.joints import mean_connection_length
 from ..mano.layer import ManoLayer
-from .modules import DecoderBlock, EncoderBlock, Linear, PositionalEncoding, TorchBatchNorm
+from .modules import (
+    CrossAttnDecoder,
+    DecoderBlock,
+    EncoderBlock,
+    Linear,
+    PositionalEncoding,
+    TorchBatchNorm,
+)
 from .swinv2 import SwinV2, SwinV2Config, swinv2_base_256, swinv2_tiny_256
 
 PHASES = ("spatial", "temporal", "inference")
@@ -51,8 +63,8 @@ class PoserConfig:
 
     Options whose code paths later slices of the port bring (latent group,
     sparse perspective, patch decoration, encoder-type spatial layers,
-    realtime temporal encoders, orientation positioning) are refused here
-    rather than silently run as something else.
+    orientation positioning) are refused here rather than silently run as
+    something else.
     """
 
     backbone: str = "swinv2-tiny-256"
@@ -61,7 +73,8 @@ class PoserConfig:
     spatial_layer_type: str = "decoder"
     num_temporal_layer: int = 2
     temporal_init_method: str = "zero"      # "zero" | "random"
-    temporal_supervision: str = "full"
+    temporal_supervision: str = "full"      # "full" | "realtime"
+    trope_scalar: float = 20.0
     num_latent_layer: Optional[int] = None
     persp_embed_method: str = "dense"
     persp_decorate: str = "query"
@@ -69,12 +82,11 @@ class PoserConfig:
     global_positioning: str = "direct"
     compat_scale: bool = True               # MHA sqrt(d_h)-multiply quirk
     custom_swin: Optional[SwinV2Config] = None
-    attention_impl: str = "auto"            # "auto" | "eager" | "fused"
+    attention_impl: str = "auto"            # "auto" | "eager" | "fused" | "pallas" | "hybrid"
 
     def __post_init__(self):
         unported = {
             "spatial_layer_type": (self.spatial_layer_type, "decoder"),
-            "temporal_supervision": (self.temporal_supervision, "full"),
             "persp_embed_method": (self.persp_embed_method, "dense"),
             "persp_decorate": (self.persp_decorate, "query"),
             "global_positioning": (self.global_positioning, "direct"),
@@ -87,6 +99,8 @@ class PoserConfig:
                 )
         if self.temporal_init_method not in ("zero", "random"):
             raise ValueError(f"temporal_init_method must be 'zero' or 'random'")
+        if self.temporal_supervision not in ("full", "realtime"):
+            raise ValueError("temporal_supervision must be 'full' or 'realtime'")
 
     def swin_config(self) -> SwinV2Config:
         if self.custom_swin is not None:
@@ -150,19 +164,41 @@ class SpatialEncoder(nn.Module):
 
 
 class TemporalEncoder(nn.Module):
-    """Cross-frame fusion, ``"full"`` mode: absolute PE + encoder blocks over
-    T, then the (zero-initialised) ``zero_conv`` projection."""
+    """Cross-frame fusion, then the (zero-initialised) ``zero_conv``
+    projection; the caller adds the residual.
+
+    ``target="full"``: absolute PE + encoder blocks over T, [B,T,D] out.
+    ``target="realtime"``: continuous-time RoPE at ``timestamp /
+    trope_scalar`` (no parameters), then cross-attention decoders whose query
+    is the last frame, [B,1,D] out.
+    """
 
     def __init__(self, embed_dim: int, num_heads: int, num_layer: int,
+                 target: str = "full", trope_scalar: float = 20.0,
                  compat_scale: bool = True):
         super().__init__()
-        self.pe_temporal = PositionalEncoding(embed_dim)
+        self.target, self.trope_scalar = target, trope_scalar
+        if target == "realtime":
+            self.pe_temporal = PositionalEncoding(embed_dim, mode="trope")
+            block = CrossAttnDecoder
+        else:
+            self.pe_temporal = PositionalEncoding(embed_dim)
+            block = EncoderBlock
         self.layers = nn.ModuleList(
-            EncoderBlock(embed_dim, num_heads, compat_scale) for _ in range(num_layer)
+            block(embed_dim, num_heads, compat_scale) for _ in range(num_layer)
         )
         self.zero_conv = Linear(embed_dim, embed_dim, bias=False)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, timestamp: Optional[torch.Tensor] = None,
+                train: bool = False) -> torch.Tensor:
+        if self.target == "realtime":
+            if timestamp is None:
+                raise ValueError("the realtime temporal encoder needs timestamps")
+            x_seq = self.pe_temporal(x, timestamp / self.trope_scalar)
+            y = x_seq[:, -1:]
+            for layer in self.layers:
+                y = layer(y, x_seq, train)
+            return self.zero_conv(y)
         y = self.pe_temporal(x)
         for layer in self.layers:
             y = layer(y, train)
@@ -212,7 +248,8 @@ class Poser(nn.Module):
         )
         for name in ("pose", "shape", "root"):
             setattr(self, f"{name}_temporal_encoder", TemporalEncoder(
-                D, cfg.num_heads, cfg.num_temporal_layer, cfg.compat_scale
+                D, cfg.num_heads, cfg.num_temporal_layer, cfg.temporal_supervision,
+                cfg.trope_scalar, cfg.compat_scale,
             ))
         self.pose_decoder = nn.Sequential(Linear(D, cfg.num_pose_query * 6))
         self.shape_decoder = nn.Sequential(Linear(D, 10))
@@ -228,38 +265,48 @@ class Poser(nn.Module):
     def decode_pose(
         self,
         imgs: torch.Tensor,       # [B,T,H,W,3] in [0,1]
+        timestamp: torch.Tensor,  # [B,T] ms
         persp_vec: torch.Tensor,  # [B,T,p,q,2]
         phase: str = "inference",
         generator: Optional[torch.Generator] = None,
     ):
-        """Images -> (pose_aa [B,T,16,3], shape [B,T,10], root_norm [B,T,3]).
+        """Images -> (pose_aa [B,T',16,3], shape [B,T',10], root_norm
+        [B,T',3]); T' is 1 with the realtime temporal encoders, else T.
         `generator` draws the backbone's droppath in the spatial phase."""
         if phase not in PHASES:
             raise ValueError(f"phase must be one of {PHASES}, got {phase!r}")
         cfg = self.config
         B, T = imgs.shape[:2]
         spatial_train = phase == "spatial"
-        x = imgs.reshape((B * T,) + tuple(imgs.shape[2:]))
-        # f32 statistics, activation dtype kept (f32 constants must not promote)
-        x = ((x.float() - self.img_mean) / self.img_std).to(imgs.dtype)
-        patches = self.backbone(x, generator if spatial_train else None)  # [BT,P,D]
-
-        persp_bias = self.perspective_mlp(
-            persp_vec.reshape(B * T, -1), spatial_train).to(patches.dtype)
-        query = self.query_token[None].expand(B * T, -1, -1) + persp_bias[:, None]
-        fused = self.spatial_encoder(query, patches, spatial_train)     # [BT,3,D]
-        if phase == "temporal":
-            fused = fused.detach()  # only the temporal encoders train
+        # the temporal phase trains only the temporal encoders: no autograd
+        # graph below them
+        frozen = torch.no_grad() if phase == "temporal" else contextlib.nullcontext()
+        with frozen:
+            x = imgs.reshape((B * T,) + tuple(imgs.shape[2:]))
+            # f32 statistics, activation dtype kept (f32 constants must not promote)
+            x = ((x.float() - self.img_mean) / self.img_std).to(imgs.dtype)
+            patches = self.backbone(x, generator if spatial_train else None)  # [BT,P,D]
+            persp_bias = self.perspective_mlp(
+                persp_vec.reshape(B * T, -1), spatial_train).to(patches.dtype)
+            query = self.query_token[None].expand(B * T, -1, -1) + persp_bias[:, None]
+            fused = self.spatial_encoder(query, patches, spatial_train)     # [BT,3,D]
 
         q = fused.reshape(B, T, 3, -1).permute(2, 0, 1, 3)
         pose_q, shape_q, root_q = q[0], q[1], q[2]
         if phase != "spatial":
             temporal_train = phase == "temporal"
-            pose_q = pose_q + self.pose_temporal_encoder(pose_q, temporal_train)
-            shape_q = shape_q + self.shape_temporal_encoder(shape_q, temporal_train)
-            root_q = root_q + self.root_temporal_encoder(root_q, temporal_train)
+            if cfg.temporal_supervision == "full":
+                pose_q = pose_q + self.pose_temporal_encoder(pose_q, train=temporal_train)
+                shape_q = shape_q + self.shape_temporal_encoder(shape_q, train=temporal_train)
+                root_q = root_q + self.root_temporal_encoder(root_q, train=temporal_train)
+            else:
+                ts = timestamp.reshape(B, T)
+                pose_q = pose_q[:, -1:] + self.pose_temporal_encoder(pose_q, ts, temporal_train)
+                shape_q = shape_q[:, -1:] + self.shape_temporal_encoder(shape_q, ts, temporal_train)
+                root_q = root_q[:, -1:] + self.root_temporal_encoder(root_q, ts, temporal_train)
+        T_out = pose_q.shape[1]
 
-        pose_6d = self.pose_decoder(pose_q).reshape(B, T, cfg.num_pose_query, 6)
+        pose_6d = self.pose_decoder(pose_q).reshape(B, T_out, cfg.num_pose_query, 6)
         pose_aa = matrix_to_axis_angle(rotation_6d_to_matrix(pose_6d))
         return pose_aa, self.shape_decoder(shape_q), self.root_decoder(root_q)
 
@@ -288,7 +335,7 @@ class Poser(nn.Module):
         self,
         img_tensor: torch.Tensor,     # [B,T,H,W,3]
         square_bboxes: torch.Tensor,  # [B,T,4] xyxy
-        timestamp: torch.Tensor,      # [B,T] ms (unused by the "full" temporal mode)
+        timestamp: torch.Tensor,      # [B,T] ms (read by the "realtime" temporal mode)
         focal: torch.Tensor,          # [B,T,2]
         princpt: torch.Tensor,        # [B,T,2]
         phase: str = "inference",
@@ -296,10 +343,9 @@ class Poser(nn.Module):
     ) -> Dict[str, torch.Tensor]:
         """Public inference API (``phase="inference"``); the train step calls
         it with its phase."""
-        del timestamp
         directions = sample_persp_dir_vec(16, square_bboxes, focal, princpt)
         pose_aa, shape, root_transl_norm = self.decode_pose(
-            img_tensor, directions, phase, generator)
+            img_tensor, timestamp, directions, phase, generator)
         joint_cam, verts_cam, root_transl = self.pose_fk(pose_aa, shape, root_transl_norm)
         return {
             "joint_cam": joint_cam,
@@ -313,14 +359,22 @@ class Poser(nn.Module):
     def criterion(
         self, predict: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor], phase: str,
     ):
-        """Joint/shape losses and, in the temporal phase, the smoothness term
-        (``criterion`` of the JAX Poser). Returns (loss, logs)."""
-        pj, gj, valid = predict["joint_cam"], batch["joint_cam"], batch["joint_valid"]
+        """Joint/shape losses on the supervised frames (the last one with the
+        realtime temporal encoders, else all) and, in the temporal phase with
+        ``"full"`` supervision, the smoothness term (``criterion`` of the JAX
+        Poser). Returns (loss, logs)."""
+        realtime = self.config.temporal_supervision == "realtime"
+
+        def tsel(x):  # the supervised frames
+            return x[:, -1:] if realtime else x
+
+        pj, gj = tsel(predict["joint_cam"]), tsel(batch["joint_cam"])
+        valid = tsel(batch["joint_valid"])
         loss_joint_cam = torch.mean(safe_norm(pj - gj) * valid)
         loss_joint_rel = torch.mean(
             safe_norm((pj - pj[:, :, :1]) - (gj - gj[:, :, :1])) * valid)
-        loss_shape = torch.mean(torch.abs(predict["shape"] - batch["mano_shape"]))
-        if phase == "temporal":
+        loss_shape = torch.mean(torch.abs(tsel(predict["shape"]) - tsel(batch["mano_shape"])))
+        if phase == "temporal" and not realtime:
             vel_p = derivative(pj, 1)
             vel_g = derivative(gj, 1)
             loss_vel = torch.mean(safe_norm(vel_p - vel_g))

@@ -11,10 +11,15 @@ package. SwinV2 semantics kept:
   - per-stage window/shift clamped to the input resolution
   - patch merging concat order (0,0),(1,0),(0,1),(1,1) -> Linear(4C->2C) -> LN
 
-``SwinV2Block`` runs one of two implementations: ``"eager"`` (the JAX
-package's XLA path, op for op) or ``"fused"`` (:func:`fused_swin_block`,
-the CUDA kernels on CUDA tensors, forward and backward). ``"auto"`` picks
-``"fused"`` for CUDA tensors and ``"eager"`` for CPU tensors.
+``SwinV2Block`` runs one of three implementations: ``"eager"`` (the JAX
+package's XLA path, op for op), ``"fused"`` (:func:`fused_swin_block`, the
+CUDA kernels on CUDA tensors, forward and backward) or ``"pallas"`` (the
+eager block around the attention-only kernel :func:`fused_window_attention`,
+forward only, as the JAX ``"pallas"`` path; its output stays in q's dtype,
+so bf16 activations are not promoted to f32 as on the eager path).
+``"auto"`` picks ``"fused"`` for CUDA tensors and ``"eager"`` for CPU
+tensors; ``"hybrid"`` picks ``"pallas"`` for a block with more than one
+window and ``"eager"`` for the others, once, when the block is built.
 
 Stochastic depth: block i of n drops its two residual branches per image with
 rate ``linspace(0, drop_path_rate, n)[i]``, drawing from the
@@ -37,9 +42,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.fused_block import fused_swin_block, window_partition, window_reverse
+from ..ops.window_attention import fused_window_attention
 from .modules import LayerNorm, Linear
 
-ATTENTION_IMPLS = ("auto", "eager", "fused")
+ATTENTION_IMPLS = ("auto", "eager", "fused", "pallas", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,13 +172,23 @@ class Swinv2SelfAttention(nn.Module):
         """exp(min(logit_scale, ln 100)), [heads, 1, 1]."""
         return torch.exp(torch.clamp(self.logit_scale, max=math.log(100.0)))
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
-        """x: [B_, L, C] window tokens; mask: [nW, L, L] additive or None."""
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor],
+                kernel: bool = False) -> torch.Tensor:
+        """x: [B_, L, C] window tokens; mask: [nW, L, L] additive or None;
+        `kernel`: the attention core through :func:`fused_window_attention`
+        (the JAX ``"pallas"`` path)."""
         B_, L, C = x.shape
         H, hd = self.num_heads, C // self.num_heads
         q = self.query(x).reshape(B_, L, H, hd).transpose(1, 2)
         k = self.key(x).reshape(B_, L, H, hd).transpose(1, 2)
         v = self.value(x).reshape(B_, L, H, hd).transpose(1, 2)
+        if kernel:
+            rel_bias = self.relative_position_bias()
+            bias = rel_bias[None] if mask is None else rel_bias[None] + mask[:, None]
+            out = fused_window_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                         bias.contiguous(),
+                                         self.logit_scale_value().reshape(-1).float())
+            return out.transpose(1, 2).reshape(B_, L, C)
         qn = q / torch.clamp(torch.linalg.vector_norm(q, dim=-1, keepdim=True), min=1e-12)
         kn = k / torch.clamp(torch.linalg.vector_norm(k, dim=-1, keepdim=True), min=1e-12)
         attn = (qn @ kn.transpose(-1, -2)) * self.logit_scale_value()
@@ -212,12 +228,11 @@ class SwinV2Block(nn.Module):
                  num_heads: int, shift_size: int, pretrained_window_size: int = 0,
                  attention_impl: str = "auto", drop_path_rate: float = 0.0):
         super().__init__()
-        if attention_impl not in ATTENTION_IMPLS:
-            raise ValueError(f"attention_impl must be one of {ATTENTION_IMPLS}, got {attention_impl!r}")
         self.config, self.dim, self.resolution = config, dim, resolution
         self.drop_path_rate = drop_path_rate
-        self.num_heads, self.attention_impl = num_heads, attention_impl
+        self.num_heads = num_heads
         self.ws, self.sh = _compute_window_shift(resolution, config.window_size, shift_size)
+        self.set_attention_impl(attention_impl)
         hidden = int(dim * config.mlp_ratio)
         self.attention = Swinv2Attention(dim, num_heads, self.ws, pretrained_window_size,
                                          config.qkv_bias)
@@ -234,6 +249,15 @@ class SwinV2Block(nn.Module):
         # of a recursive parameters() walk on every forward
         self._fused_cache, self._own_modules = None, tuple(self.modules())
 
+    def set_attention_impl(self, impl: str) -> None:
+        """One of ``ATTENTION_IMPLS``; ``"hybrid"`` resolves here, per block."""
+        if impl not in ATTENTION_IMPLS:
+            raise ValueError(f"attention_impl must be one of {ATTENTION_IMPLS}, got {impl!r}")
+        if impl == "hybrid":
+            n_windows = (self.resolution[0] // self.ws) * (self.resolution[1] // self.ws)
+            impl = "pallas" if n_windows > 1 else "eager"
+        self.attention_impl = impl
+
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x: [B, H*W, C]; `generator` draws the droppath mask (None or a
@@ -245,7 +269,9 @@ class SwinV2Block(nn.Module):
         if generator is not None and self.drop_path_rate > 0.0:
             p = torch.full((x.shape[0], 2), 1.0 - self.drop_path_rate, device=generator.device)
             keep = torch.bernoulli(p, generator=generator).to(x.device)
-        return self._fused(x, keep) if impl == "fused" else self._eager(x, keep)
+        if impl == "fused":
+            return self._fused(x, keep)
+        return self._eager(x, keep, kernel=impl == "pallas")
 
     def _drop_path(self, branch: torch.Tensor, keep: Optional[torch.Tensor], col: int):
         if keep is None:
@@ -253,7 +279,8 @@ class SwinV2Block(nn.Module):
         mask = keep[:, col].to(branch.dtype).reshape(-1, *([1] * (branch.dim() - 1)))
         return branch * mask / (1.0 - self.drop_path_rate)
 
-    def _eager(self, x: torch.Tensor, keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def _eager(self, x: torch.Tensor, keep: Optional[torch.Tensor] = None,
+               kernel: bool = False) -> torch.Tensor:
         H, W = self.resolution
         B, _, C = x.shape
         ws, sh = self.ws, self.sh
@@ -262,7 +289,7 @@ class SwinV2Block(nn.Module):
         if sh > 0:
             x = torch.roll(x, shifts=(-sh, -sh), dims=(1, 2))
         windows = window_partition(x, ws)
-        attn_out = self.attention.output(self.attention.self(windows, self.attn_mask))
+        attn_out = self.attention.output(self.attention.self(windows, self.attn_mask, kernel))
         x = window_reverse(attn_out, ws, B, H, W)
         if sh > 0:
             x = torch.roll(x, shifts=(sh, sh), dims=(1, 2))
@@ -420,11 +447,9 @@ class SwinV2(nn.Module):
         self.layernorm = LayerNorm(dim, eps=cfg.layer_norm_eps)
 
     def set_attention_impl(self, impl: str) -> None:
-        if impl not in ATTENTION_IMPLS:
-            raise ValueError(f"attention_impl must be one of {ATTENTION_IMPLS}, got {impl!r}")
         for stage in self.encoder.layers:
             for blk in stage.blocks:
-                blk.attention_impl = impl
+                blk.set_attention_impl(impl)
 
     def forward(self, pixel_values: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

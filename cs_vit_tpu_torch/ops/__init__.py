@@ -1,3 +1,5 @@
+# fused_block.window_attention is not re-exported: the name belongs to the
+# submodule ops.window_attention (the attention-only kernel)
 from .fused_block import (  # noqa: F401
     block_reference,
     fused_swin_block,
@@ -5,5 +7,4 @@ from .fused_block import (  # noqa: F401
     launch_counts,
     ln_residual,
     reset_launch_counts,
-    window_attention,
 )

@@ -3,9 +3,15 @@
 Build and load once, run a fixed batch shape, serve numpy in / numpy out,
 padding a short request by repeating its last row:
 
-    sess = PoserSession.from_experiment("checkpoints/myexp")
+    sess = PoserSession.from_experiment("checkpoints/myexp", seq_len=T)
     out = sess.predict_crops(patches, square_bboxes, timestamps, focal, princpt)
-    out["joint_cam"]  # [N, T, 21, 3] mm
+    out["joint_cam"]  # [N, T, 21, 3] mm; [N, 1, 21, 3] with realtime temporal encoders
+
+A session runs ``seq_len`` frames per sample: the config's
+``temporal_supervision`` decides whether all of them (``"full"``) or the last
+one (``"realtime"``, which reads the timestamps) come out, and its
+``attention_impl`` which backbone path runs. Timestamps stay f32 when the
+images are bf16.
 
 Checkpoints are reference-style ``.pt`` files (``{"model"|"merged":
 state_dict}``, as ``tools/export_torch_ckpt.py`` writes them from an orbax

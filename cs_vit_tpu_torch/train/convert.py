@@ -4,8 +4,8 @@
 ``cs_vit_tpu/train/convert.py:export_poser_state_dict``: a flax parameter
 tree and batch-stats tree (nested dicts of numpy arrays) become reference
 state-dict names, which load strictly into :class:`~..models.poser.Poser`.
-It covers the modules the inference slice has: backbone, perspective
-encoder, decoder-type spatial encoder, ``"full"`` temporal encoders, heads.
+It covers the modules the port has: backbone, perspective encoder,
+decoder-type spatial encoder, temporal encoders of either form, heads.
 
 Name scheme (flax -> reference):
   backbone/*                   -> backbone.* (HF Swinv2 names)
@@ -14,7 +14,10 @@ Name scheme (flax -> reference):
   perspective_mlp/fc{0,1,2}    -> perspective_mlp.layer.{1,4,7}
   perspective_mlp/out          -> perspective_mlp.layer.9
   spatial_encoder/layerN       -> spatial_encoder.layers.N
-  *_temporal_encoder/layerN    -> *_temporal_encoder.layers.N (+ zero_conv)
+  *_temporal_encoder/layerN    -> *_temporal_encoder.layers.N (+ zero_conv);
+                                  "full": encoder blocks and pe_temporal.pe.weight,
+                                  "realtime": cross-attention decoders (norm1,
+                                  cross_atten, norm2, ffn) and no pe_temporal
   {pose,shape,root}_decoder    -> {pose,shape,root}_decoder.0
 Dense kernels [in, out] become Linear weights [out, in]; the patch conv
 HWIO becomes OIHW; BatchNorm scale/bias -> weight/bias, mean/var ->
@@ -94,6 +97,12 @@ class FlaxMapper:
         for n in ("norm1", "norm2", "norm3"):
             self.bn(fpath + (n,), _join(tname, n))
 
+    def cross_attn_decoder(self, fpath, tname):
+        self.mha(fpath + ("cross_atten",), _join(tname, "cross_atten"))
+        self.ffn(fpath + ("ffn",), _join(tname, "ffn"))
+        self.bn(fpath + ("norm1",), _join(tname, "norm1"))
+        self.bn(fpath + ("norm2",), _join(tname, "norm2"))
+
     def swinv2_block(self, fpath, tname, qkv_bias=True):
         a, sa = fpath + ("attn",), _join(tname, "attention.self")
         self.out[_join(sa, "logit_scale")] = self.p[a + ("logit_scale",)]
@@ -147,10 +156,13 @@ def state_dict_from_flax(
     for i in range(config.num_spatial_layer):
         m.decoder_block(("spatial_encoder", f"layer{i}"), f"spatial_encoder.layers.{i}")
 
+    realtime = config.temporal_supervision == "realtime"
     for name in ("pose_temporal_encoder", "shape_temporal_encoder", "root_temporal_encoder"):
-        m.out[f"{name}.pe_temporal.pe.weight"] = m.p[(name, "pe_temporal", "pe")]
+        if not realtime:  # the trope PE has no parameters
+            m.out[f"{name}.pe_temporal.pe.weight"] = m.p[(name, "pe_temporal", "pe")]
+        block = m.cross_attn_decoder if realtime else m.encoder_block
         for i in range(config.num_temporal_layer):
-            m.encoder_block((name, f"layer{i}"), f"{name}.layers.{i}")
+            block((name, f"layer{i}"), f"{name}.layers.{i}")
         m.lin((name, "zero_conv"), f"{name}.zero_conv", bias=False)
 
     for name in ("pose_decoder", "shape_decoder", "root_decoder"):

@@ -6,8 +6,15 @@ model is called through ``torch.func.functional_call``), the images are cast
 to bf16, and the loss, the BatchNorm statistics, the grads of the masters and
 the optimizer state stay f32. A non-finite loss leaves the parameters, the
 AdamW state and the BatchNorm running statistics untouched and does not
-advance ``step``: the forward updates copies of the running statistics, which
-are written back only on an accepted step.
+advance ``step``: the forward updates copies of the running statistics of
+the BatchNorms the phase trains, which are written back only on an accepted
+step; the other statistics are never written.
+
+The phase decides what trains (``phase_trainable_params``): in
+``"temporal"`` only the temporal encoders, whose BatchNorms run on batch
+statistics, while the model runs the backbone and the spatial encoder
+without autograd; the frozen parameters' compute-dtype copies are made
+without autograd too.
 """
 
 from __future__ import annotations
@@ -40,14 +47,24 @@ def make_train_step(
     if phase not in ("spatial", "temporal"):
         raise ValueError(f"phase must be 'spatial' or 'temporal', got {phase!r}")
     trainable = optimizer.params()
-    stat_names = [n for n, _ in model.named_buffers() if n.endswith(_STAT_SUFFIXES)]
+    trained_ids = {id(p) for p in trainable}
+    # the running statistics of the BatchNorms whose scales the phase trains
+    weights = dict(model.named_parameters())
+    stat_names = [n for n, _ in model.named_buffers() if n.endswith(_STAT_SUFFIXES)
+                  and id(weights[n.rsplit(".", 1)[0] + ".weight"]) in trained_ids]
+
+    def cast(p):
+        if compute_dtype is None or not p.is_floating_point():
+            return p
+        if id(p) in trained_ids:
+            return p.to(compute_dtype)
+        with torch.no_grad():
+            return p.to(compute_dtype)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None):
-        params = dict(model.named_parameters())
+        params = {n: cast(p) for n, p in model.named_parameters()}
         if compute_dtype is not None:
-            params = {n: p.to(compute_dtype) if p.is_floating_point() else p
-                      for n, p in params.items()}
             batch = {**batch, "patches": batch["patches"].to(compute_dtype)}
         stats = {n: model.get_buffer(n).clone() for n in stat_names}
         out = functional_call(model, {**params, **stats}, (batch, phase, generator))

@@ -7,10 +7,12 @@ test whether a card is present and skips otherwise. Run them on the card:
     python -m pytest --noconftest tests/test_torch_kernels.py -m gpu -q
 
 (``--noconftest``: tests/conftest.py sets up JAX, which the card's machine
-need not have.) The per-kernel cases run ``chip_smoke.kernel_checks`` and
-``chip_smoke.bwd_kernel_checks``, the checks ``chip_smoke.py`` makes, at the Swin-B-256 block geometries and the
+need not have.) The per-kernel cases run ``chip_smoke.kernel_checks``,
+``chip_smoke.bwd_kernel_checks`` and ``chip_smoke.window_attention_checks``,
+the checks ``chip_smoke.py`` makes, at the Swin-B-256 block geometries and the
 batches of ``chip_smoke.CHECK_BATCHES`` (so also marked ``slow``) with its
-stated tolerances (``chip_smoke.TOL``).
+stated tolerances (``chip_smoke.TOL``); the overlap probe's case runs
+``chip_smoke.check_probe`` at the probe's own shapes (``chip_smoke.PROBE_TOL``).
 This file imports no JAX.
 """
 
@@ -20,6 +22,8 @@ import torch
 import chip_smoke
 from cs_vit_tpu_torch.models.swinv2 import _shift_attn_mask
 from cs_vit_tpu_torch.ops import fused_block as fb
+from cs_vit_tpu_torch.ops import probe_overlap as po
+from cs_vit_tpu_torch.ops import window_attention as wa
 
 
 def _need_card():
@@ -152,3 +156,85 @@ def test_cpu_tensors_take_the_plain_versions():
     assert torch.equal(fb.window_attention(qkv, bias, scale, mask, **kw),
                        fb.window_attention_reference(qkv, bias, scale, mask, **kw))
     assert all(v == 0 for v in fb.launch_counts().values())
+
+
+@pytest.mark.gpu
+@pytest.mark.slow
+@pytest.mark.parametrize("dname", ["bf16", "f32"])
+@pytest.mark.parametrize("geom", chip_smoke.GEOMS,
+                         ids=[f"stage{g[0]}_shift{g[5]}" for g in chip_smoke.GEOMS])
+def test_window_attention_kernel_matches_plain_version(geom, dname):
+    """chip_smoke.py's attention-only kernel check at one geometry and dtype,
+    every batch and every image count of the temporal paths: one launch
+    each."""
+    _need_card()
+    for B in chip_smoke.CHECK_BATCHES + chip_smoke.WA_PATH_BATCHES:
+        wa.reset_launch_counts()
+        results = chip_smoke.window_attention_checks(torch, wa, dname, geom, B)
+        assert all(r[3] <= r[4] for r in results), (B, results)
+        assert wa.launch_counts() == {"fused_window_attention": 1}
+
+
+@pytest.mark.gpu
+def test_window_attention_kernel_refuses_what_it_does_not_take():
+    _need_card()
+    q = torch.randn(4, 2, 16, 32, device="cuda")
+    bias, scale = torch.zeros(1, 2, 16, 16, device="cuda"), torch.ones(2, device="cuda")
+    with pytest.raises(ValueError):  # head_dim 16
+        wa.fused_window_attention(q[..., :16].contiguous(), q[..., :16].contiguous(),
+                                  q[..., :16].contiguous(), bias, scale)
+    with pytest.raises(ValueError):  # L = 32
+        wa.fused_window_attention(*(torch.randn(4, 2, 32, 32, device="cuda"),) * 3,
+                                  torch.zeros(1, 2, 32, 32, device="cuda"), scale)
+    with pytest.raises(ValueError):  # B_ not a multiple of nW
+        wa.fused_window_attention(q, q, q, torch.zeros(3, 2, 16, 16, device="cuda"), scale)
+    with pytest.raises(ValueError):  # f16
+        wa.fused_window_attention(*(q.half(),) * 3, bias, scale)
+    with pytest.raises(RuntimeError):  # under autograd: the kernel has no backward
+        wa.fused_window_attention(q.clone().requires_grad_(), q, q, bias, scale)
+    with torch.no_grad():  # the same call without autograd runs
+        out = wa.fused_window_attention(q.clone().requires_grad_(), q, q, bias, scale)
+    assert out.shape == q.shape
+
+
+@pytest.mark.gpu
+def test_probe_kernel_matches_plain_version():
+    _need_card()
+    po.reset_launch_counts()
+    chip_smoke.check_probe(torch, po)
+    assert po.launch_counts() == {"probe_overlap": 3}
+
+
+@pytest.mark.gpu
+def test_probe_kernel_refuses_what_it_does_not_take():
+    _need_card()
+    a = torch.randn(512, 512, device="cuda").to(torch.bfloat16)
+    x = torch.randn(2048, 512, device="cuda")
+    with pytest.raises(ValueError):  # M not a multiple of 64
+        po.probe_overlap(a[:100].contiguous(), a, x, "both")
+    with pytest.raises(ValueError):  # f32 products
+        po.probe_overlap(a.float(), a.float(), x, "both")
+    with pytest.raises(ValueError):  # x not a whole number of chunks
+        po.probe_overlap(a, a, x[:, :100].contiguous(), "both")
+    with pytest.raises(ValueError):
+        po.probe_overlap(a, a, x, "vpu")
+
+
+def test_cpu_tensors_take_the_plain_attention_and_probe_versions():
+    """On CPU tensors the attention-only kernel's and the probe's wrappers
+    return their plain versions' results and count no launch."""
+    g = torch.Generator().manual_seed(2)
+    q, k, v = (torch.randn(8, 2, 16, 32, generator=g) for _ in range(3))
+    bias, scale = torch.randn(4, 2, 16, 16, generator=g), torch.full((2,), 10.0)
+    wa.reset_launch_counts()
+    po.reset_launch_counts()
+    assert torch.equal(wa.fused_window_attention(q, k, v, bias, scale),
+                       wa.fused_window_attention_reference(q, k, v, bias, scale))
+    a, w = (torch.randn(64, 64, generator=g).to(torch.bfloat16) for _ in range(2))
+    x = torch.randn(4, 64, generator=g)
+    for mode in po.MODES:
+        for got, want in zip(po.probe_overlap(a, w, x, mode),
+                             po.probe_overlap_reference(a, w, x, mode)):
+            assert torch.equal(got, want)
+    assert wa.launch_counts() == {"fused_window_attention": 0}
+    assert po.launch_counts() == {"probe_overlap": 0}

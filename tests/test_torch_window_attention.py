@@ -1,0 +1,174 @@
+"""Port parity: the attention-only window kernel's plain version and the
+``"pallas"``/``"hybrid"`` SwinV2 backbones against the JAX package.
+
+On CPU tensors ``fused_window_attention`` runs its plain version, which is
+held against JAX ``fused_window_attention`` (Pallas in interpret mode, as
+``tests/test_window_attention.py`` runs it) and ``xla_window_attention``.
+Tolerances, each with its reason:
+
+* f32: atol 1e-5, as the JAX test holds the Pallas kernel to the XLA path
+  (same math, other summation order).
+* bf16 (q, k, v and output in bf16; the bias f32 with the mask, bf16
+  without, as the backbone hands it over): within one bf16 ulp of the
+  output's scale (2^(floor(log2 max|out|) - 7)). q^ and k^ are f32 on every
+  side; the plain version and the Pallas kernel round p to bf16 at the same
+  point, the XLA path does not, and each output is rounded to bf16 once.
+* The backbone (depths (2, 2): shifted blocks, a patch merge and a
+  single-window stage; the config of tests/test_window_attention.py), f32:
+  3e-5 of the output's scale, the tolerance of the port's other backbone
+  tests (per-block f32 sum-order noise, amplified a little by the LNs).
+* The bf16 ``"pallas"`` backbone against JAX's, both in bf16 end to end:
+  with random weights at width 8 the blocks amplify bf16 rounding chaotically
+  (each side's bf16 output lies about 35% of its scale from its own f32
+  output), and the LayerNorms round at other points (JAX rounds the
+  normalised value before its bf16 affine, the port once after an f32
+  affine), so the port is held to JAX's own bf16-vs-f32 distance: it must lie
+  no further from JAX's bf16 output than that output lies from JAX's f32 one.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cs_vit_tpu.models.swinv2 import SwinV2 as JSwinV2
+from cs_vit_tpu.models.swinv2 import SwinV2Config as JSwinV2Config
+from cs_vit_tpu.ops.window_attention import fused_window_attention as j_fused_window_attention
+from cs_vit_tpu.ops.window_attention import xla_window_attention
+from cs_vit_tpu_torch.models.swinv2 import SwinV2, SwinV2Config
+from cs_vit_tpu_torch.ops import window_attention as wa
+from cs_vit_tpu_torch.train.convert import FlaxMapper, load_reference_state_dict
+
+SWIN = dict(image_size=32, patch_size=4, embed_dim=8, depths=(2, 2), num_heads=(2, 4),
+            window_size=4, drop_path_rate=0.0, pretrained_window_sizes=(0, 0))
+
+
+def _inputs(rng, with_mask, B_=8, H=2, L=16, hd=32):
+    nW = 4 if with_mask else 1
+    q, k, v = (rng.normal(size=(B_, H, L, hd)).astype(np.float32) for _ in range(3))
+    bias = (16 / (1 + np.exp(-rng.normal(size=(1, H, L, L))))).astype(np.float32)
+    if with_mask:
+        bias = (bias + np.where(rng.uniform(size=(nW, 1, L, L)) > 0.8, -100.0, 0.0)
+                ).astype(np.float32)
+    scale = np.exp(rng.uniform(0.5, 2.0, size=(H,))).astype(np.float32)
+    return q, k, v, bias, scale
+
+
+def _bf16_ulp_of_scale(x):
+    return 2.0 ** (np.floor(np.log2(np.abs(x).max())) - 7)
+
+
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_plain_version_matches_jax_f32(rng, with_mask):
+    q, k, v, bias, scale = _inputs(rng, with_mask)
+    j = [jnp.asarray(a) for a in (q, k, v, bias, scale)]
+    want_pallas = np.asarray(j_fused_window_attention(*j, interpret=True))
+    want_xla = np.asarray(xla_window_attention(*j))
+    wa.reset_launch_counts()
+    got = wa.fused_window_attention(*[torch.from_numpy(a) for a in (q, k, v, bias, scale)])
+    assert wa.launch_counts() == {"fused_window_attention": 0}  # CPU: the plain version
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    np.testing.assert_allclose(got.numpy(), want_pallas, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got.numpy(), want_xla, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_plain_version_matches_jax_bf16(rng, with_mask):
+    q, k, v, bias, scale = _inputs(rng, with_mask)
+    jb = [jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)]
+    jbias = jnp.asarray(bias) if with_mask else jnp.asarray(bias).astype(jnp.bfloat16)
+    want_pallas = np.asarray(j_fused_window_attention(
+        *jb, jbias, jnp.asarray(scale), interpret=True).astype(jnp.float32))
+    want_xla = np.asarray(xla_window_attention(*jb, jbias, jnp.asarray(scale)).astype(jnp.float32))
+    tb = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)]
+    tbias = torch.from_numpy(bias) if with_mask else torch.from_numpy(bias).to(torch.bfloat16)
+    got = wa.fused_window_attention(*tb, tbias, torch.from_numpy(scale))
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    for want in (want_pallas, want_xla):
+        assert np.abs(got - want).max() <= _bf16_ulp_of_scale(want)
+
+
+def _carry(impl, x):
+    jmod = JSwinV2(JSwinV2Config(**SWIN), attention_impl="xla")
+    params = jmod.init(jax.random.key(0), jnp.asarray(x))
+    m = FlaxMapper(jax.tree.map(np.asarray, params["params"]))
+    cfg = SwinV2Config(**SWIN)
+    m.swinv2((), "", cfg)
+    tmod = SwinV2(cfg, attention_impl=impl)
+    load_reference_state_dict(tmod, m.out)
+    return params, tmod.eval()
+
+
+@pytest.mark.parametrize("impl", ["pallas", "hybrid"])
+def test_backbone_matches_jax_f32(rng, impl):
+    x = rng.normal(size=(2, 32, 32, 3)).astype(np.float32)
+    params, tmod = _carry(impl, x)
+    # "hybrid": the kernel where an image has more than one window (stage 0,
+    # 8x8 tokens in 4x4 windows), the eager core at the single-window stage 1
+    blocks = [b.attention_impl for s in tmod.encoder.layers for b in s.blocks]
+    assert blocks == (["pallas"] * 4 if impl == "pallas" else ["pallas"] * 2 + ["eager"] * 2)
+    with torch.no_grad():
+        got = tmod(torch.from_numpy(x)).numpy()
+    want = np.asarray(JSwinV2(JSwinV2Config(**SWIN), attention_impl=impl).apply(
+        params, jnp.asarray(x)))
+    assert np.abs(got - want).max() <= 3e-5 * np.abs(want).max()
+
+
+def test_pallas_backbone_keeps_bf16_and_matches_jax(rng):
+    """The kernel's output stays in q's dtype, so a bf16 "pallas" backbone
+    runs in bf16 to the end, where the eager path is promoted to f32 by the
+    f32 shift mask (as in the JAX package)."""
+    x = rng.normal(size=(2, 32, 32, 3)).astype(np.float32)
+    params, tmod = _carry("pallas", x)
+    for p in tmod.parameters():  # as PoserSession casts: the f32 shift mask stays f32
+        p.data = p.data.to(torch.bfloat16)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    with torch.no_grad():
+        got = tmod(xb)
+        tmod.set_attention_impl("eager")
+        eager = tmod(xb)
+    assert got.dtype == torch.bfloat16 and eager.dtype == torch.float32
+    jparams = jax.tree.map(lambda a: a.astype(jnp.bfloat16), params)
+    want = JSwinV2(JSwinV2Config(**SWIN), attention_impl="pallas").apply(
+        jparams, jnp.asarray(x).astype(jnp.bfloat16))
+    assert want.dtype == jnp.bfloat16
+    want = np.asarray(want.astype(jnp.float32))
+    want32 = np.asarray(JSwinV2(JSwinV2Config(**SWIN), attention_impl="pallas").apply(
+        params, jnp.asarray(x)))
+    assert np.abs(got.float().numpy() - want).max() <= np.abs(want - want32).max()
+
+
+def test_no_grad_is_not_needed_on_the_cpu(rng):
+    """On CPU tensors the plain version runs under autograd like any torch
+    code (only the CUDA kernel, which has no backward, refuses)."""
+    q, k, v, bias, scale = (torch.from_numpy(a) for a in _inputs(rng, True))
+    q.requires_grad_()
+    out = wa.fused_window_attention(q, k, v, bias, scale)
+    (g,) = torch.autograd.grad(out.sum(), q)
+    assert torch.isfinite(g).all()
+
+
+def test_pallas_blocks_hand_the_kernel_what_it_takes(rng, monkeypatch):
+    """The CUDA wrapper refuses non-contiguous operands, and the CPU plain
+    version would not notice: every block hands over contiguous q, k, v,
+    bias (the permuted CPB table is not) and an f32 logit scale per head."""
+    from cs_vit_tpu_torch.models import swinv2 as sw
+
+    calls = []
+
+    def spy(q, k, v, bias, scale):
+        H, L = q.shape[1], q.shape[2]
+        calls.append((all(t.is_contiguous() for t in (q, k, v, bias, scale)), scale.dtype,
+                      scale.shape == (H,), bias.shape[1:] == (H, L, L)))
+        return wa.fused_window_attention(q, k, v, bias, scale)
+
+    monkeypatch.setattr(sw, "fused_window_attention", spy)
+    tmod = SwinV2(SwinV2Config(**SWIN), attention_impl="pallas")
+    for p in tmod.parameters():
+        p.data = p.data.to(torch.bfloat16)
+    with torch.no_grad():
+        x = torch.from_numpy(rng.normal(size=(2, 32, 32, 3)).astype(np.float32))
+        tmod(x.to(torch.bfloat16))
+    assert calls == [(True, torch.float32, True, True)] * 4
