@@ -10,15 +10,17 @@ order, failing (non-zero exit, no result line) at the first phase that fails:
 
 1. prints the card (``nvidia-smi`` name and power limit), turns TF32 off;
 2. builds the kernels (all four sources at once) and prints the build time
-   and the compiler's register/spill report;
+   and the compiler's register/spill report; fails if a tensor-core window
+   attention kernel (``*_tc_kernel``) spills;
 3. holds each forward and backward kernel of the whole-block path, the whole
    ``fused_swin_block``, the whole block backward (``FusedSwinBlock``) and
    the attention-only window kernel (``fused_window_attention``) against its
    plain PyTorch version at every Swin-B-256 block geometry (stages 0/1 with
    and without shift, stage 2, stage 3 at L=64), at batch 1, 2 and 8, bf16
    and f32 (the attention-only kernel also at the 3, 24 and 40 images of the
-   temporal paths); a CUDA ``fused_window_attention`` under autograd must
-   raise;
+   temporal paths); the two window-attention forward kernels also at a ws 4
+   (L=16) geometry and with one query row's whole bias at -100; a CUDA
+   ``fused_window_attention`` under autograd must raise;
 4. serves the flagship model (Swin-B-256 Poser, img 256, bf16, synthetic
    MANO, seeded random weights) through ``PoserSession`` at batch 1 and 8,
    checks the outputs, the kernel launch counts per forward, and the kernel
@@ -43,9 +45,13 @@ order, failing (non-zero exit, no result line) at the first phase that fails:
 8. runs the tensor-core/SFU overlap probe's kernel against its plain version
    in its three modes, then its entry point (``tools.probe_overlap``);
 9. times every kernel at its path's shapes (batch 8) beside its plain
-   version, one library call and its bound, and the serve latencies;
-10. prints ``{"kernels": [...]}``, then ``{"ok": true, "device": {...}}`` as
-    the last line.
+   version, one library call and its bound (CUDA events around calls as the
+   host issues them, ``cuda_ms``), the two window-attention forward kernels
+   and their SDPA calls also queued behind a sleep kernel (``queued_ms``:
+   the card's time, flagged where the host still fell behind), and the
+   serve latencies;
+10. prints each kernel's kernel / library factor, then ``{"kernels": [...]}``,
+    then ``{"ok": true, "device": {...}}`` as the last line.
 
 Each phase prints its wall seconds. It imports nothing of JAX or of
 ``cs_vit_tpu``.
@@ -56,6 +62,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -77,6 +84,13 @@ GEOMS = (
     (2, 16, 512, 16, 16, 0, 18),
     (3, 8, 1024, 32, 8, 0, 2),
 )
+# small-window geometries (ws 4, L=16) that only the two window-attention
+# forward kernels' checks use ("stage" 9 seeds them apart from GEOMS)
+SMALL_GEOMS = ((9, 8, 128, 4, 4, 0, 0), (9, 8, 128, 4, 4, 2, 0))
+# the bias of a shifted block's query row 0 all at -100 (a row the shift mask
+# masks whole), checked at these geometries: (stage, shift) of GEOMS /
+# SMALL_GEOMS
+MASKED_ROW_GEOMS = ((0, 8), (9, 2))
 KERNEL_SOURCE = "cs_vit_tpu_torch/ops/csrc/fused_block.cu"
 REPLACES = "cs_vit_tpu/ops/fused_block.py:738"
 # kernel vs plain: max |kernel - plain| / max |plain|. f32: only the order of
@@ -153,6 +167,9 @@ TEMPORAL_SAVED_MAX = 64 * 2**20
 # later products carry it), f32 vec to 1e-5 relative per element (__expf on
 # the SFU against exp; 32 passes of exp(v/4 - 1) contract errors)
 PROBE_TOL = {"acc": 2e-2, "vec": 1e-5}
+# queued_ms's sleep kernel ahead of the timed calls (about 20 ms at 1.98 GHz):
+# long enough for the host to enqueue them all
+SLEEP_CYCLES = 40_000_000
 # SFU exp2 throughput of a Hopper SM (16 per clock, the CUDA programming
 # guide's table of arithmetic instruction throughput, compute capability 9.0)
 SFU_PER_CLOCK_PER_SM = 16
@@ -257,12 +274,7 @@ def kernel_checks(torch, fb, dname, geom, B=2):
     m2 = fb.gemm_bias_act_reference(h, t["w2"], t["b2"], out_dtype=torch.float32)
     pairs.append(("gemm_bias_act", "mlp2 f32-out",
                   fb.gemm_bias_act(h, t["w2"], t["b2"], out_dtype=torch.float32), m2))
-    kw = dict(window_size=ws, num_heads=heads, shift=shift)
-    qkv4 = qkv.reshape(B, res, res, 3 * C)
-    pairs.append(("swin_window_attn_fwd", "attn",
-                  fb.window_attention(qkv4, t["rel_bias"], t["logit_scale"], t["mask"], **kw),
-                  fb.window_attention_reference(qkv4, t["rel_bias"], t["logit_scale"],
-                                                t["mask"], **kw)))
+    pairs.append(swin_attention_pair(fb, t, qkv.reshape(B, res, res, 3 * C), geom))
     ln1 = (m2, x2, t["ln1_scale"], t["ln1_bias"], t["dp"], 0, 1e-5, dtype)
     y32, ydt = fb.ln_residual_reference(*ln1)
     kdt, k32 = fb.ln_residual(*ln1, keep_f32=True)
@@ -285,6 +297,49 @@ def kernel_checks(torch, fb, dname, geom, B=2):
         (name, what, *rel_err(got, want), tol["block" if name == "fused_swin_block" else "kernel"])
         for name, what, got, want in pairs
     ]
+
+
+def swin_attention_pair(fb, t, qkv4, geom, mask=None, what="attn"):
+    """(kernel, what, got, want) of ``swin_window_attn_fwd`` on qkv4 with
+    block_inputs' bias and (unless `mask` is given) its shift mask."""
+    _, _, _, heads, ws, shift, _ = geom
+    kw = dict(window_size=ws, num_heads=heads, shift=shift)
+    mask = t["mask"] if mask is None else mask
+    ops = (qkv4, t["rel_bias"], t["logit_scale"], mask)
+    return ("swin_window_attn_fwd", what, fb.window_attention(*ops, **kw),
+            fb.window_attention_reference(*ops, **kw))
+
+
+def attention_checks(torch, fb, wa, dname, geom, B=2, masked_row=False):
+    """The two window-attention forward kernels against their plain versions
+    at one geometry and batch B (the small-window geometries, which only they
+    see): [(kernel, what, max_abs, rel, tol)]. `masked_row`: instead, a
+    shifted block whose query row 0 has its whole bias at -100 (the shift
+    mask's value) in every window."""
+    stage, res, C, heads, ws, shift, _ = geom
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dname]
+    seed = stage * 10 + shift + 100 * B + 17
+    t = block_inputs(torch, B, res, C, heads, ws, shift, dtype, seed=seed)
+    qkv4 = fb.gemm_bias_act_reference(t["x"].reshape(-1, C), t["wqkv"], t["bqkv"])
+    qkv4 = qkv4.reshape(B, res, res, 3 * C)
+    if not masked_row:
+        pairs = [swin_attention_pair(fb, t, qkv4, geom)]
+        results = window_attention_checks(torch, wa, dname, geom, B)
+    else:
+        mask = t["mask"].clone()
+        mask[:, 0, :] = -100.0
+        pairs = [swin_attention_pair(fb, t, qkv4, geom, mask, "row 0 all -100")]
+        q, k, v, bias, scale = window_attention_inputs(torch, B, res, C, heads, ws, shift,
+                                                       dtype, seed=seed + 1)
+        bias = bias.float().clone()
+        bias[:, :, 0, :] = -100.0
+        pairs.append(("fused_window_attention", "row 0 all -100",
+                      wa.fused_window_attention(q, k, v, bias, scale),
+                      wa.fused_window_attention_reference(q, k, v, bias, scale)))
+        results = []
+    sync(torch)
+    return [(name, what, *rel_err(got, want), TOL[dname]["kernel"])
+            for name, what, got, want in pairs] + results
 
 
 def bwd_kernel_checks(torch, fb, dname, geom, B=2):
@@ -417,14 +472,24 @@ def check_kernels(torch, fb, wa):
                               "gemm_dgrad", "gemm_wgrad", "ln_residual_bwd",
                               "swin_window_attn_bwd", "fused_window_attention")}
     n_checks = 0
+    masked = [g for g in GEOMS + SMALL_GEOMS if (g[0], g[5]) in MASKED_ROW_GEOMS]
     for dname in ("bf16", "f32"):
-        for geom, B in ((g, B) for g in GEOMS for B in CHECK_BATCHES + WA_PATH_BATCHES):
-            results = window_attention_checks(torch, wa, dname, geom, B)
-            if B in CHECK_BATCHES:
-                results = (kernel_checks(torch, fb, dname, geom, B)
-                           + bwd_kernel_checks(torch, fb, dname, geom, B) + results)
+        for geom, B, kind in (
+            [(g, B, "all") for g in GEOMS for B in CHECK_BATCHES + WA_PATH_BATCHES]
+            + [(g, B, "attention") for g in SMALL_GEOMS for B in CHECK_BATCHES]
+            + [(g, 2, "masked row") for g in masked]
+        ):
+            if kind == "all":
+                results = window_attention_checks(torch, wa, dname, geom, B)
+                if B in CHECK_BATCHES:
+                    results = (kernel_checks(torch, fb, dname, geom, B)
+                               + bwd_kernel_checks(torch, fb, dname, geom, B) + results)
+            else:
+                results = attention_checks(torch, fb, wa, dname, geom, B,
+                                           masked_row=kind == "masked row")
             n_checks += len(results)
-            where = f"{dname} b{B} stage{geom[0]} shift{geom[5]}"
+            where = (f"{dname} b{B} stage{geom[0]} shift{geom[5]}" if kind == "all" else
+                     f"{dname} b{B} L{geom[4] ** 2} shift{geom[5]} {kind}")
             by_kernel = {}
             for name, what, err, rel, tol in results:
                 if not rel <= tol:
@@ -440,6 +505,57 @@ def check_kernels(torch, fb, wa):
     return worst
 
 
+# the tensor-core instantiations of each library: (kernel, L, variant)
+TC_KERNELS = {
+    "fused_block": {("window_attn_tc_kernel", L, v)
+                    for L in (256, 64, 16) for v in ("masked", "unmasked")},
+    "window_attention": {("fused_window_attn_tc_kernel", L, v)
+                         for L in (256, 64, 16) for v in ("f32 bias", "bf16 bias")},
+}
+
+
+def ptxas_entries(log: str) -> dict:
+    """{mangled kernel name: (registers, spill store bytes, spill load
+    bytes)} from an ``nvcc -Xptxas -v`` report."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, [0, 0, 0])
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out[name][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def check_tc_spills(lib: str, log: str) -> None:
+    """The tensor-core window-attention kernels (``*_tc_kernel``) keep their
+    score block in registers: fail on any spill, and unless the report holds
+    every instantiation of TC_KERNELS[lib]."""
+    seen = set()
+    for name, (regs, stores, loads) in ptxas_entries(log).items():
+        m = re.search(r"\d((?:fused_)?window_attn_tc_kernel)ILi(\d+)E(f|13__nv_bfloat16|Lb[01]E)",
+                      name)
+        if not m:
+            continue
+        variant = {"f": "f32 bias", "13__nv_bfloat16": "bf16 bias", "Lb1E": "masked",
+                   "Lb0E": "unmasked"}[m.group(3)]
+        seen.add((m.group(1), int(m.group(2)), variant))
+        what = f"{m.group(1)}<L={m.group(2)}, {variant}>"
+        print(f"tensor-core kernel {lib}: {what} {regs} registers, spill stores {stores} B, "
+              f"spill loads {loads} B")
+        if stores or loads:
+            fail(f"{what} spills registers ({stores} B stored, {loads} B loaded)")
+    missing = TC_KERNELS[lib] - seen
+    if missing:
+        fail(f"the ptxas report of {lib} lacks {sorted(missing)}: their spills are unchecked")
+
+
 def cuda_ms(torch, fn, iters=20, warmup=3):
     for _ in range(warmup):
         fn()
@@ -450,6 +566,46 @@ def cuda_ms(torch, fn, iters=20, warmup=3):
     end.record()
     sync(torch)
     return start.elapsed_time(end) / iters
+
+
+def queued_ms(torch, fn, iters=20, warmup=3):
+    """Device ms per call of fn, printed beside cuda_ms's reading (the calls
+    as the host issues them): here the `iters` calls wait behind a sleep
+    kernel of SLEEP_CYCLES, so they run back to back and the events read the
+    card's time, not the host's issue rate. Returns (ms, host_gapped):
+    host_gapped is True where the enqueue outlasted the sleep, so that host
+    gaps are in the reading."""
+    for _ in range(warmup):
+        fn()
+    sync(torch)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    ev[1].record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    ev[2].record()
+    sync(torch)
+    return ev[1].elapsed_time(ev[2]) / iters, host_ms > ev[0].elapsed_time(ev[1])
+
+
+# the kernels line's keys of a device-queued reading (queued_ms) of a kernel
+# and of its library call, beside the issued ones (ms, library_ms)
+QUEUED_KEYS = {"queued_ms": 0.0, "queued_library_ms": 0.0, "queued_host_gapped": False}
+
+
+def queued(torch, r, n_blocks, kernel, library, what):
+    """Adds n_blocks device-queued readings of `kernel` and `library` to the
+    totals r (QUEUED_KEYS) and prints them."""
+    ms, gap_k = queued_ms(torch, kernel)
+    lib, gap_l = queued_ms(torch, library)
+    print(f"queued {what}: {ms:.4f} ms, library {lib:.4f} ms"
+          + (" (host gaps included)" if gap_k or gap_l else ""))
+    r["queued_ms"] += n_blocks * ms
+    r["queued_library_ms"] += n_blocks * lib
+    r["queued_host_gapped"] |= gap_k or gap_l
 
 
 def time_kernels(torch, fb, F, B=8):
@@ -471,6 +627,7 @@ def time_kernels(torch, fb, F, B=8):
         r["flops_s"] += n_blocks * tf
         r["bound_ms"] += n_blocks * max(tb, tf)
 
+    tot["swin_window_attn_fwd"].update(QUEUED_KEYS)
     for stage, res, C, heads, ws, shift, n_blocks in GEOMS:
         t = block_inputs(torch, B, res, C, heads, ws, shift, bf, seed=100 + stage)
         M, L, Ch = B * res * res, ws * ws, 4 * C
@@ -519,7 +676,11 @@ def time_kernels(torch, fb, F, B=8):
             bias = bias + mk.float()[:, None]
         bias = bias[None].expand(B, nW, heads, L, L).reshape(B * nW, heads, L, L).to(bf).contiguous()
         q, k, v = q.to(bf).contiguous(), k.to(bf).contiguous(), win[2].contiguous()
-        lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=1.0))
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=1.0)  # noqa: E731
+        lib = cuda_ms(torch, sdpa)
+        queued(torch, tot["swin_window_attn_fwd"], n_blocks,
+               lambda: fb.window_attention(qkv, rb, ls, mk, **kw), sdpa,
+               f"stage{stage} shift{shift} swin_window_attn_fwd")
         # q|k|v in, o out; bias and mask in their own dtype (bf16, as served)
         nbytes = (M * 3 * C * 2 + M * C * 2 + heads * 4
                   + (heads * L * L + (nW * L * L if shift else 0)) * rb.element_size())
@@ -1226,6 +1387,7 @@ def time_window_attention(torch, wa, F, B=8, T=RT_T):
     the float bias as attn_mask, scale 1) and its bound."""
     bf = torch.bfloat16
     r = {k: 0.0 for k in ("ms", "plain_ms", "library_ms", "bytes_s", "flops_s", "bound_ms")}
+    r.update(QUEUED_KEYS)
     for stage, res, C, heads, ws, shift, n_blocks in GEOMS:
         q, k, v, bias, scale = window_attention_inputs(torch, B * T, res, C, heads, ws, shift, bf,
                                                        seed=300 + stage)
@@ -1235,8 +1397,10 @@ def time_window_attention(torch, wa, F, B=8, T=RT_T):
         qn = (F.normalize(q.float(), dim=-1) * scale.reshape(1, heads, 1, 1)).to(bf)
         kn = F.normalize(k.float(), dim=-1).to(bf)
         mask = bias.to(bf)[None].expand(B * T, nW, heads, L, L).reshape(B_, heads, L, L)
-        lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(qn, kn, v, attn_mask=mask,
-                                                                     scale=1.0))
+        sdpa = lambda: F.scaled_dot_product_attention(qn, kn, v, attn_mask=mask, scale=1.0)  # noqa: E731
+        lib = cuda_ms(torch, sdpa)
+        queued(torch, r, n_blocks, lambda: wa.fused_window_attention(q, k, v, bias, scale), sdpa,
+               f"stage{stage} shift{shift} fused_window_attention")
         # q, k, v in, out written, at their dtype; the bias at its size and dtype
         nbytes = 4 * q.numel() * q.element_size() + bias.numel() * bias.element_size() + heads * 4
         flops = 4 * (B_ * L) * L * C
@@ -1387,6 +1551,10 @@ def main() -> int:
                 for line in log.read_text().splitlines():
                     if "registers" in line or "spill" in line or "Compiling entry" in line:
                         print(f"ptxas {name}: {line.strip()}")
+            if name in TC_KERNELS:
+                if not log.exists():
+                    fail(f"no ptxas report of {name} ({log.name}): its spills are unchecked")
+                check_tc_spills(name, log.read_text())
 
     with phase("check"):
         worst = check_kernels(torch, fb, wa)
@@ -1486,6 +1654,7 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "bytes" if r["bytes_s"] >= r["flops_s"] else "operations",
             "library_ms": r["library_ms"],
+            **{k: r[k] for k in QUEUED_KEYS if k in r},
         })
     kernels.append({
         "name": "probe_overlap", "route": "cuda", "source": PROBE_SOURCE,
@@ -1493,6 +1662,15 @@ def main() -> int:
         "ms": probe_ms["both"], "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
         "library_ms": None,  # no single PyTorch call computes the chain
     })
+    for k in kernels:
+        if k["library_ms"]:
+            print(f"factor {k['name']}: kernel / library {k['ms'] / k['library_ms']:.3f}x "
+                  f"({k['ms']:.3f} / {k['library_ms']:.3f} ms)")
+        if "queued_ms" in k:
+            print(f"factor {k['name']} queued: kernel / library "
+                  f"{k['queued_ms'] / k['queued_library_ms']:.3f}x ({k['queued_ms']:.3f} / "
+                  f"{k['queued_library_ms']:.3f} ms"
+                  + (", host gaps included)" if k["queued_host_gapped"] else ")"))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -30,13 +30,24 @@
 //    yet: that is the next step for speed.
 //  * swin_window_attn_fwd: bytes at the bf16 tensor-core peak (at L=256,
 //    4*L*hd = 32768 FLOPs per query and head against 4*hd*2 = 256 bytes of
-//    q, k, v and o: 128 FLOP/byte, under the H100's ~295), but run on SIMT
-//    f32 math (no tensor cores yet) it is held by the FMA rate. The L x L
-//    scores never leave shared memory. One CUDA block per (query tile of 32,
-//    head, image*window); the cyclic shift and the window partition are index
-//    arithmetic on the gather and the scatter. rel_bias and the shift mask
-//    are read in the compute dtype, as the TPU kernel takes them, and widened
-//    to f32 in registers.
+//    q, k, v and o: 128 FLOP/byte, under the H100's ~295). bf16 (the timed
+//    path): the tensor-core core of window_attn_core.cuh (mma.sync m16n8k16,
+//    one warp per 16 query rows with its whole [16, L] score block in
+//    registers: the full-row variant, no two-pass; 203 registers unshifted,
+//    195 with the shift mask at L=256, no spill, per ptxas -v for sm_90a; 2
+//    blocks of 4 warps per SM), 4 warps = 64 query rows per block at L=256
+//    and L=64, one warp at L=16. q^ and k^ are rounded to
+//    bf16 as the plain version rounds them, so they are exact mma operands:
+//    one product per score tile. Each block takes one (query tile, head,
+//    window) and walks a group of images: its rel_bias and shift-mask rows
+//    (bf16) are staged once in shared memory for all of them; each image's
+//    q, k and v are gathered as 4 x 16-byte cp.async per token (its 64 bytes
+//    of a head in its 3C row), the next image's while this one computes; k^
+//    is normalised in shared memory, q^ in registers. The cyclic shift and
+//    the window partition are index arithmetic on the gather and the
+//    scatter. f32 (the check path, dt_code 0; nothing times it):
+//    SIMT f32 math, one block per (query tile of 32, head, image*window),
+//    the L x L scores in shared memory.
 //  * ln_residual: bytes. One warp per token row, one read of each input and
 //    one write of each output. A null dp means keep-scales of 1 (inference).
 //
@@ -44,9 +55,11 @@
 // right after its launch; it launches on the caller's stream, allocates
 // nothing and does not synchronise.
 
+#include <limits.h>
 #include <mma.h>
 
 #include "common.cuh"
+#include "window_attn_core.cuh"
 
 namespace {
 
@@ -376,6 +389,196 @@ int launch_attn(const void* qkv, const void* rel_bias, const void* mask, const v
   return (int)cudaGetLastError();
 }
 
+// bf16: tensor cores (window_attn_core.cuh). Grid (query tile of 64 or 16
+// rows, head, window + nW * image group): a block walks the images of its
+// group for one (query tile, head, window). Shared memory: q of the block's
+// rows, k and v of the window (swizzled bf16), the block's rel_bias rows and,
+// with a shift, its mask rows (padded bf16).
+template <int L>
+__host__ __device__ constexpr size_t attn_tc_smem_bytes(bool masked) {
+  return ((size_t)(WC_ROWS * wc_warps<L>() + 2 * L) * WC_HD
+          + (masked ? 2 : 1) * (size_t)WC_ROWS * wc_warps<L>() * (L + WC_BIAS_PAD))
+         * sizeof(bf16);
+}
+
+template <int L, bool MASKED>
+__global__ void __launch_bounds__(32 * wc_warps<L>())
+window_attn_tc_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ rel_bias,
+                      const bf16* __restrict__ mask, const float* __restrict__ scale,
+                      bf16* __restrict__ out, int B, int H, int W, int C, int shift,
+                      int per_group) {
+  constexpr int WS = L == 256 ? 16 : (L == 64 ? 8 : 4);
+  constexpr int NWARP = wc_warps<L>(), THREADS = 32 * NWARP, QROWS = WC_ROWS * NWARP;
+  constexpr int BLD = L + WC_BIAS_PAD;
+  extern __shared__ __align__(16) unsigned char wc_smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(wc_smem);
+  bf16* Ks = Qs + QROWS * WC_HD;
+  bf16* Vs = Ks + L * WC_HD;
+  bf16* Rb = Vs + L * WC_HD;   // [QROWS][BLD] rel_bias rows
+  bf16* Mk = Rb + QROWS * BLD;  // [QROWS][BLD] mask rows (MASKED)
+
+  const int nWc = W / WS, nW = (H / WS) * nWc;
+  const int h = blockIdx.y;
+  const int w = blockIdx.z % nW;
+  const int b0 = (blockIdx.z / nW) * per_group, b1 = min(B, b0 + per_group);
+  const int wr = w / nWc, wc = w % nWc;
+  const int q0 = blockIdx.x * QROWS;
+  const int tid = threadIdx.x, warp = tid >> 5;
+
+  // Window token l of shifted window (wr, wc) is token
+  // ((wr*WS + i + shift) mod H, (wc*WS + j + shift) mod W) of its image.
+  // Each thread copies the same chunks of every image: their offsets in an
+  // image's [H, W, 3C] qkv, and those of its two output rows in [H, W, C],
+  // are computed once.
+  constexpr int KV_PER = L * 4 / THREADS, Q_PER = QROWS * 4 / THREADS;
+  int kv_off[KV_PER], q_off[Q_PER];
+#pragma unroll
+  for (int i = 0; i < KV_PER; ++i) {
+    const int c = tid + i * THREADS, l = c >> 2;
+    const int tok = ((wr * WS + l / WS + shift) % H) * W + (wc * WS + l % WS + shift) % W;
+    kv_off[i] = tok * 3 * C + h * WC_HD + (c & 3) * 8;
+  }
+#pragma unroll
+  for (int i = 0; i < Q_PER; ++i) {
+    const int c = tid + i * THREADS, l = q0 + (c >> 2);
+    const int tok = ((wr * WS + l / WS + shift) % H) * W + (wc * WS + l % WS + shift) % W;
+    q_off[i] = tok * 3 * C + h * WC_HD + (c & 3) * 8;
+  }
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  int o_off[2];  // this lane's output rows: r0 + g and r0 + g + 8
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int l = q0 + warp * WC_ROWS + g + 8 * i;
+    const int tok = ((wr * WS + l / WS + shift) % H) * W + (wc * WS + l % WS + shift) % W;
+    o_off[i] = tok * C + h * WC_HD;
+  }
+  const size_t img_qkv = (size_t)H * W * 3 * C, img_out = (size_t)H * W * C;
+
+  // cp.async groups: q and k of an image, the bias rows (once), v of an
+  // image. A head's 32 values of q, k or v are 64 contiguous bytes of the
+  // token's 3C row: 4 chunks of 16 bytes. Every thread commits every group
+  // (empty past the last image), so the wait counts below hold.
+  gather_rows<THREADS>(Qs, qkv + b0 * img_qkv, q_off);
+  gather_rows<THREADS>(Ks, qkv + b0 * img_qkv + C, kv_off);
+  cp_async_commit();
+  stage_rows(Rb, BLD, rel_bias + ((size_t)h * L + q0) * L, L, QROWS, L, tid, THREADS);
+  if (MASKED) stage_rows(Mk, BLD, mask + ((size_t)w * L + q0) * L, L, QROWS, L, tid, THREADS);
+  cp_async_commit();
+  gather_rows<THREADS>(Vs, qkv + b0 * img_qkv + 2 * C, kv_off);
+  cp_async_commit();
+
+  const SmemBias<bf16, MASKED> bias_at{Rb + warp * WC_ROWS * BLD, Mk + warp * WC_ROWS * BLD, BLD};
+  const float sc = scale[h];
+  for (int b = b0; b < b1; ++b) {
+    // pending: (bias, v) of the first image, else v of this one
+    if (b == b0) cp_async_wait<2>();
+    else cp_async_wait<1>();
+    __syncthreads();  // q and k of this image
+    // k^ = k * rsqrt(sum k^2 + 1e-24), rounded to bf16, in place. L * 4 is a
+    // multiple of THREADS, so every lane of a quad takes each step.
+    for (int c = tid; c < L * 4; c += THREADS) {
+      bf16* chunk = Ks + swz(c >> 2, c & 3);
+      float f[8];
+      const float r = rsqrtf(chunk_row_sumsq(chunk, f) + 1e-24f);
+      uint4 packed;
+      packed.x = pack_bf16(f[0] * r, f[1] * r);
+      packed.y = pack_bf16(f[2] * r, f[3] * r);
+      packed.z = pack_bf16(f[4] * r, f[5] * r);
+      packed.w = pack_bf16(f[6] * r, f[7] * r);
+      *reinterpret_cast<uint4*>(chunk) = packed;
+    }
+    // q^ likewise, in this warp's A fragments
+    uint32_t qa[2][4];
+    load_q_frags(qa, Qs + warp * WC_ROWS * WC_HD);
+    const float2 qss = q_row_sumsq(qa);
+    const float rq0 = rsqrtf(qss.x + 1e-24f), rq1 = rsqrtf(qss.y + 1e-24f);
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = unpack_bf16(qa[kk][i]);
+        const float r = (i & 1) ? rq1 : rq0;
+        qa[kk][i] = pack_bf16(f.x * r, f.y * r);
+      }
+    __syncthreads();  // k^
+    float s[L / 8][4];
+    window_scores<L>(s, qa, Ks);
+    if (b == b0) {
+      cp_async_wait<1>();  // pending: v
+      __syncthreads();     // the bias rows
+    }
+    uint32_t pa[L / 16][4];
+    window_softmax<L, false>(s, sc, sc, nullptr, bias_at, pa);
+    // the next image's q and k, fetched once the f32 scores are gone (fewer
+    // live registers than right after the product)
+    __syncthreads();  // every warp is done with q and k
+    if (b + 1 < b1) {
+      gather_rows<THREADS>(Qs, qkv + (b + 1) * img_qkv, q_off);
+      gather_rows<THREADS>(Ks, qkv + (b + 1) * img_qkv + C, kv_off);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // pending: next q and k
+    __syncthreads();     // v of this image
+    float o[4][4];
+    window_pv<L>(pa, Vs, o);
+
+    bf16* o0 = out + b * img_out + o_off[0];
+    bf16* o1 = out + b * img_out + o_off[1];
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const int c = n * 8 + 2 * t;
+      *reinterpret_cast<uint32_t*>(o0 + c) = pack_bf16(o[n][0], o[n][1]);
+      *reinterpret_cast<uint32_t*>(o1 + c) = pack_bf16(o[n][2], o[n][3]);
+    }
+    __syncthreads();  // every warp is done with v
+    if (b + 1 < b1) gather_rows<THREADS>(Vs, qkv + (b + 1) * img_qkv + 2 * C, kv_off);
+    cp_async_commit();
+  }
+}
+
+template <int L, bool MASKED>
+int launch_attn_tc(const void* qkv, const void* rel_bias, const void* mask, const void* scale,
+                   void* out, int B, int H, int W, int C, int heads, int ws, int shift,
+                   cudaStream_t st) {
+  constexpr int THREADS = 32 * wc_warps<L>(), TILES = L / (WC_ROWS * wc_warps<L>());
+  constexpr size_t smem = attn_tc_smem_bytes<L>(MASKED);
+  if ((long long)H * W * 3 * C > INT_MAX) return (int)cudaErrorInvalidValue;  // int offsets
+  auto kernel = window_attn_tc_kernel<L, MASKED>;
+  static int resident[WC_MAX_DEVICES];
+  const int blocks = device_blocks(resident, kernel, THREADS, smem);
+  if (blocks < 0) return -blocks;
+  const int nW = (H / ws) * (W / ws);
+  const int per_group = images_per_group(blocks, TILES * heads * nW, B);
+  dim3 grid(TILES, heads, nW * ((B + per_group - 1) / per_group));
+  kernel<<<grid, THREADS, smem, st>>>(
+      static_cast<const bf16*>(qkv), static_cast<const bf16*>(rel_bias),
+      static_cast<const bf16*>(mask), static_cast<const float*>(scale), static_cast<bf16*>(out),
+      B, H, W, C, shift, per_group);
+  return (int)cudaGetLastError();
+}
+
+template <int L>
+int launch_attn_tc(const void* qkv, const void* rel_bias, const void* mask, const void* scale,
+                   void* out, int B, int H, int W, int C, int heads, int ws, int shift,
+                   cudaStream_t st) {
+  if (mask)
+    return launch_attn_tc<L, true>(qkv, rel_bias, mask, scale, out, B, H, W, C, heads, ws,
+                                   shift, st);
+  return launch_attn_tc<L, false>(qkv, rel_bias, mask, scale, out, B, H, W, C, heads, ws, shift,
+                                  st);
+}
+
+int launch_attn_bf16(const void* qkv, const void* rel_bias, const void* mask, const void* scale,
+                     void* out, int B, int H, int W, int C, int heads, int ws, int shift,
+                     cudaStream_t st) {
+  switch (ws) {
+    case 16: return launch_attn_tc<256>(qkv, rel_bias, mask, scale, out, B, H, W, C, heads, ws, shift, st);
+    case 8: return launch_attn_tc<64>(qkv, rel_bias, mask, scale, out, B, H, W, C, heads, ws, shift, st);
+    case 4: return launch_attn_tc<16>(qkv, rel_bias, mask, scale, out, B, H, W, C, heads, ws, shift, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // dt_code: 0 = float32, 1 = bfloat16
@@ -443,6 +646,6 @@ extern "C" int swin_window_attn_fwd(const void* qkv, const void* rel_bias, const
                                     int heads, int ws, int shift, int dt_code, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dt_code == 1)
-    return launch_attn<bf16>(qkv, rel_bias, mask, scale, out, B, H, W, C, heads, ws, shift, st);
+    return launch_attn_bf16(qkv, rel_bias, mask, scale, out, B, H, W, C, heads, ws, shift, st);
   return launch_attn<float>(qkv, rel_bias, mask, scale, out, B, H, W, C, heads, ws, shift, st);
 }

@@ -13,23 +13,36 @@
 // in its own dtype (f32 when the f32 shift mask was added, else the CPB
 // bias's dtype) and widened in registers.
 //
-// What bounds it on the H100, and what the design does about it: bytes at
-// the tensor-core peak (at L=256 and hd=32, 4*L*hd FLOPs per query row
-// against the 4*hd values of q, k, v and out it moves: 128 FLOP/byte in bf16,
-// under the card's ~295), but run on SIMT f32 math (no tensor cores yet) it
-// is held by the FMA rate. The L x L scores never leave shared memory. One
-// CUDA block per (query tile of 32 rows, head, window instance); k^ (f32) and
-// v stay in shared memory for the whole window beside the score tile: about
-// 101 KB at L=256. The layout and loops are those of window_attn_kernel in
-// fused_block.cu; the TPU kernel's bias residency across images has no
-// counterpart (blocks run in no order); the bias slab of a block is read
-// once, coalesced, from L2.
+// What bounds it on the H100: bytes. At L=256 and hd=32 it does 4*L*hd FLOPs
+// per query row against the 4*hd values of q, k, v and out it moves: 128
+// FLOP/byte in bf16, under the card's ~295 at the tensor-core peak.
+//
+// bf16 (the timed path): the tensor-core core of window_attn_core.cuh, one
+// warp per 16 query rows with its whole [16, L] score block in registers
+// (the full-row variant, no two-pass: 190 registers with a bf16 bias, 195
+// with an f32 one at L=256, no spill, per ptxas -v for sm_90a; 2 blocks of
+// 4 warps per SM), 4 warps = 64 rows per block at L=256 and L=64, one warp
+// at L=16, each block walking a group of the images that share its bias
+// rows. q^ and k^ stay unrounded: the normalisation is a per-row and a
+// per-key scalar, so s = (q . k) * (rsqrt_q * scale) * rsqrt_k, with q and
+// k, bf16 as given, as exact mma operands and the dot product summed in f32. That is q^.k^ to f32 rounding, at one mma per score
+// tile (a bf16 hi + lo split of q^ and k^ would take three, and carry a
+// 2^-17 relative error per product). k and v of the window are staged once
+// per image by cp.async as bf16, the keys' rsqrt beside them in f32. The
+// block's bias rows are staged once in shared memory and serve every image
+// of its group, as the TPU grid (window, head chunk, image) keeps the bias
+// block in VMEM while it walks the images.
+//
+// f32 (the check path, dt_code 0; nothing times it): SIMT f32 math, one block
+// per (query tile of 32 rows, head, window instance) with k^ (f32), v and the
+// score tile in shared memory (about 101 KB at L=256).
 //
 // Plain C interface for ctypes. The entry point returns cudaGetLastError()
 // right after its launch; it launches on the caller's stream, allocates
 // nothing and does not synchronise.
 
 #include "common.cuh"
+#include "window_attn_core.cuh"
 
 namespace {
 
@@ -156,6 +169,138 @@ int launch_fused_window_attn(const void* q, const void* k, const void* v, const 
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16: tensor cores. Grid (query tile, image group, window * H + head): a
+// block walks the images of its group for one (query tile, window, head).
+// Shared memory: q of the block's rows, k and v of the window (swizzled
+// bf16), the keys' rsqrt (f32) and the block's bias rows (padded, in the
+// bias's dtype).
+// ---------------------------------------------------------------------------
+
+template <int L, typename BT>
+__host__ __device__ constexpr size_t wa_tc_smem_bytes() {
+  return (size_t)(WC_ROWS * wc_warps<L>() + 2 * L) * WC_HD * sizeof(bf16) + L * sizeof(float)
+         + (size_t)WC_ROWS * wc_warps<L>() * (L + WC_BIAS_PAD) * sizeof(BT);
+}
+
+template <int L, typename BT>
+__global__ void __launch_bounds__(32 * wc_warps<L>())
+fused_window_attn_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                            const bf16* __restrict__ v, const BT* __restrict__ bias,
+                            const float* __restrict__ scale, bf16* __restrict__ out,
+                            int H, int nW, int n_img, int per_group) {
+  constexpr int NWARP = wc_warps<L>(), THREADS = 32 * NWARP, QROWS = WC_ROWS * NWARP;
+  constexpr int BLD = L + WC_BIAS_PAD;
+  extern __shared__ __align__(16) unsigned char wc_smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(wc_smem);
+  bf16* Ks = Qs + QROWS * WC_HD;
+  bf16* Vs = Ks + L * WC_HD;
+  float* Rk = reinterpret_cast<float*>(Vs + L * WC_HD);  // rsqrt(sum k^2 + 1e-24) per key
+  BT* Bs = reinterpret_cast<BT*>(Rk + L);                // [QROWS][BLD] bias rows
+
+  const int q0 = blockIdx.x * QROWS;
+  const int img0 = blockIdx.y * per_group;
+  const int img1 = min(n_img, img0 + per_group);
+  const int w = blockIdx.z / H, h = blockIdx.z % H;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  // q, k, v, out of window instance (image, w) and head h start at
+  // img * img_ld + head
+  const size_t head = ((size_t)w * H + h) * L * WC_HD, img_ld = (size_t)nW * H * L * WC_HD;
+
+  // cp.async groups: q and k of an image, the bias rows (once), v of an
+  // image. Every thread commits every group (empty past the last image), so
+  // the wait counts below hold.
+  fetch_rows<THREADS>(Qs, q + img0 * img_ld + head + (size_t)q0 * WC_HD, QROWS, WC_HD);
+  fetch_rows<THREADS>(Ks, k + img0 * img_ld + head, L, WC_HD);
+  cp_async_commit();
+  stage_rows(Bs, BLD, bias + (((size_t)(nW == 1 ? 0 : w) * H + h) * L + q0) * L, L, QROWS, L,
+             tid, THREADS);
+  cp_async_commit();
+  fetch_rows<THREADS>(Vs, v + img0 * img_ld + head, L, WC_HD);
+  cp_async_commit();
+
+  const float sc = scale[h];
+  const SmemBias<BT> bias_at{Bs + warp * WC_ROWS * BLD, nullptr, BLD};
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
+  for (int img = img0; img < img1; ++img) {
+    // pending: (bias, v) of the first image, else v of this one
+    if (img == img0) cp_async_wait<2>();
+    else cp_async_wait<1>();
+    __syncthreads();  // q and k of this image
+    // L * 4 is a multiple of THREADS, so every lane of a quad takes each step
+    for (int c = tid; c < L * 4; c += THREADS) {
+      float f[8];
+      const float ss = chunk_row_sumsq(Ks + swz(c >> 2, c & 3), f);
+      if ((c & 3) == 0) Rk[c >> 2] = rsqrtf(ss + 1e-24f);
+    }
+    uint32_t qa[2][4];
+    load_q_frags(qa, Qs + warp * WC_ROWS * WC_HD);
+    const float2 qss = q_row_sumsq(qa);
+    float s[L / 8][4];
+    window_scores<L>(s, qa, Ks);
+    __syncthreads();  // every warp is done with q and k; Rk is written
+    if (img + 1 < img1) {
+      fetch_rows<THREADS>(Qs, q + (img + 1) * img_ld + head + (size_t)q0 * WC_HD, QROWS, WC_HD);
+      fetch_rows<THREADS>(Ks, k + (img + 1) * img_ld + head, L, WC_HD);
+    }
+    cp_async_commit();
+    if (img == img0) {
+      cp_async_wait<2>();  // pending: v, next q and k
+      __syncthreads();     // the bias rows
+    }
+    uint32_t pa[L / 16][4];
+    window_softmax<L, true>(s, rsqrtf(qss.x + 1e-24f) * sc, rsqrtf(qss.y + 1e-24f) * sc, Rk,
+                            bias_at, pa);
+    cp_async_wait<1>();  // pending: next q and k
+    __syncthreads();     // v of this image
+    float o[4][4];
+    window_pv<L>(pa, Vs, o);
+
+    bf16* orow = out + img * img_ld + head + (size_t)(q0 + warp * WC_ROWS) * WC_HD;
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const int c = n * 8 + 2 * t;
+      *reinterpret_cast<uint32_t*>(orow + g * WC_HD + c) = pack_bf16(o[n][0], o[n][1]);
+      *reinterpret_cast<uint32_t*>(orow + (g + 8) * WC_HD + c) = pack_bf16(o[n][2], o[n][3]);
+    }
+    __syncthreads();  // every warp is done with v and Rk
+    if (img + 1 < img1) fetch_rows<THREADS>(Vs, v + (img + 1) * img_ld + head, L, WC_HD);
+    cp_async_commit();
+  }
+}
+
+template <int L, typename BT>
+int launch_fused_window_attn_tc(const void* q, const void* k, const void* v, const void* bias,
+                                const void* scale, void* out, int B_, int H, int nW,
+                                cudaStream_t st) {
+  constexpr int THREADS = 32 * wc_warps<L>(), TILES = L / (WC_ROWS * wc_warps<L>());
+  constexpr size_t smem = wa_tc_smem_bytes<L, BT>();
+  auto kernel = fused_window_attn_tc_kernel<L, BT>;
+  static int resident[WC_MAX_DEVICES];
+  const int blocks = device_blocks(resident, kernel, THREADS, smem);
+  if (blocks < 0) return -blocks;
+  const int n_img = B_ / nW;
+  const int per_group = images_per_group(blocks, TILES * nW * H, n_img);
+  dim3 grid(TILES, (n_img + per_group - 1) / per_group, nW * H);
+  kernel<<<grid, THREADS, smem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const BT*>(bias), static_cast<const float*>(scale), static_cast<bf16*>(out),
+      H, nW, n_img, per_group);
+  return (int)cudaGetLastError();
+}
+
+template <typename BT>
+int launch_fused_window_attn_bf16(const void* q, const void* k, const void* v, const void* bias,
+                                  const void* scale, void* out, int B_, int H, int L, int nW,
+                                  cudaStream_t st) {
+  switch (L) {
+    case 256: return launch_fused_window_attn_tc<256, BT>(q, k, v, bias, scale, out, B_, H, nW, st);
+    case 64: return launch_fused_window_attn_tc<64, BT>(q, k, v, bias, scale, out, B_, H, nW, st);
+    case 16: return launch_fused_window_attn_tc<16, BT>(q, k, v, bias, scale, out, B_, H, nW, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // dt_code (q, k, v, out): 0 = float32, 1 = bfloat16; bias_f32: the bias is
@@ -166,8 +311,8 @@ extern "C" int fused_window_attn(const void* q, const void* k, const void* v, co
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dt_code == 1) {
     if (bias_f32)
-      return launch_fused_window_attn<bf16, float>(q, k, v, bias, scale, out, B_, H, L, nW, st);
-    return launch_fused_window_attn<bf16, bf16>(q, k, v, bias, scale, out, B_, H, L, nW, st);
+      return launch_fused_window_attn_bf16<float>(q, k, v, bias, scale, out, B_, H, L, nW, st);
+    return launch_fused_window_attn_bf16<bf16>(q, k, v, bias, scale, out, B_, H, L, nW, st);
   }
   if (bias_f32)
     return launch_fused_window_attn<float, float>(q, k, v, bias, scale, out, B_, H, L, nW, st);

@@ -310,7 +310,8 @@ def window_attention(
     [heads,L,L] (16*sigmoid CPB), logit_scale [heads] (already
     exp(clamp(., ln 100)), f32), mask [nW,L,L] additive or None; rel_bias
     and mask in qkv's dtype. Returns o [B,H,W,C] at the tokens' original
-    positions. The kernel takes head_dim 32 and L = ws*ws in {16, 64, 256}.
+    positions. The kernel takes head_dim 32 and L = ws*ws in {16, 64, 256},
+    and bf16 operands 16-byte aligned.
     """
     tensors = (qkv, rel_bias, logit_scale) + (() if mask is None else (mask,))
     if _is_cpu(*tensors):
@@ -335,6 +336,8 @@ def window_attention(
         _require(mask.shape == (nW, L, L) and mask.dtype == dt,
                  "mask must be [nW, L, L] in qkv's dtype")
     _require(all(t.is_contiguous() for t in tensors), "window_attention needs contiguous operands")
+    _require(dt != torch.bfloat16 or all(t.data_ptr() % 16 == 0 for t in tensors),
+             "the bf16 window_attention kernel needs 16-byte aligned operands")
     out = torch.empty((B, H, W, C), dtype=dt, device=qkv.device)
     rc = _lib().swin_window_attn_fwd(
         qkv.data_ptr(), rel_bias.data_ptr(), None if mask is None else mask.data_ptr(),

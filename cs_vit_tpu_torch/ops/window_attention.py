@@ -77,7 +77,7 @@ def fused_window_attention(
     """q, k, v [B_, H, L, hd] in one dtype (bf16 or f32), bias [nW or 1, H, L,
     L] (bf16 or f32) with B_ a multiple of nW, logit_scale [H] f32 (already
     ``exp(clamp(., ln 100))``). Returns [B_, H, L, hd] in q's dtype. The kernel
-    takes hd 32 and L in {16, 64, 256}."""
+    takes hd 32 and L in {16, 64, 256}, and bf16 operands 16-byte aligned."""
     tensors = (q, k, v, bias, logit_scale)
     if _is_cpu(*tensors):
         return fused_window_attention_reference(q, k, v, bias, logit_scale)
@@ -101,6 +101,8 @@ def fused_window_attention(
     _require(0 < B_ <= 65535, "fused_window_attention kernel takes 1 to 65535 window instances")
     _require(all(t.is_contiguous() for t in tensors),
              "fused_window_attention needs contiguous operands")
+    _require(dt != torch.bfloat16 or all(t.data_ptr() % 16 == 0 for t in tensors),
+             "the bf16 fused_window_attention kernel needs 16-byte aligned operands")
     out = torch.empty_like(q)
     rc = _lib().fused_window_attn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), logit_scale.data_ptr(),

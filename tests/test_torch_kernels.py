@@ -8,10 +8,12 @@ test whether a card is present and skips otherwise. Run them on the card:
 
 (``--noconftest``: tests/conftest.py sets up JAX, which the card's machine
 need not have.) The per-kernel cases run ``chip_smoke.kernel_checks``,
-``chip_smoke.bwd_kernel_checks`` and ``chip_smoke.window_attention_checks``,
-the checks ``chip_smoke.py`` makes, at the Swin-B-256 block geometries and the
-batches of ``chip_smoke.CHECK_BATCHES`` (so also marked ``slow``) with its
-stated tolerances (``chip_smoke.TOL``); the overlap probe's case runs
+``chip_smoke.bwd_kernel_checks``, ``chip_smoke.window_attention_checks`` and
+``chip_smoke.attention_checks``, the checks ``chip_smoke.py`` makes, at the
+Swin-B-256 block geometries (the two attention forward kernels also at the
+ws 4 geometries of ``chip_smoke.SMALL_GEOMS``) and the batches of
+``chip_smoke.CHECK_BATCHES`` (so also marked ``slow``) with its stated
+tolerances (``chip_smoke.TOL``); the overlap probe's case runs
 ``chip_smoke.check_probe`` at the probe's own shapes (``chip_smoke.PROBE_TOL``).
 This file imports no JAX.
 """
@@ -86,6 +88,11 @@ def test_kernels_refuse_what_they_do_not_take():
     with pytest.raises(ValueError):
         fb.window_attention(qkv, torch.zeros(4, 64, 64, device="cuda"),
                             torch.ones(4, device="cuda"), window_size=8, num_heads=4)
+    n = 8 * 8 * 3 * 64
+    qkv = torch.randn(n + 1, device="cuda").to(torch.bfloat16)[1:].view(1, 8, 8, 3 * 64)
+    with pytest.raises(ValueError):  # bf16 not 16-byte aligned
+        fb.window_attention(qkv, torch.zeros(2, 64, 64, device="cuda", dtype=torch.bfloat16),
+                            torch.ones(2, device="cuda"), window_size=8, num_heads=2)
 
 
 @pytest.mark.gpu
@@ -176,6 +183,30 @@ def test_window_attention_kernel_matches_plain_version(geom, dname):
 
 
 @pytest.mark.gpu
+@pytest.mark.slow
+@pytest.mark.parametrize("dname", ["bf16", "f32"])
+@pytest.mark.parametrize("geom", chip_smoke.SMALL_GEOMS,
+                         ids=[f"L16_shift{g[5]}" for g in chip_smoke.SMALL_GEOMS])
+def test_window_attention_kernels_at_small_windows(geom, dname):
+    """chip_smoke.py's checks of the two window-attention forward kernels at
+    a ws 4 (L=16) geometry, which the Swin-B path does not reach, every
+    batch; at the shifted geometry also with one query row's whole bias at
+    -100."""
+    _need_card()
+    for B in chip_smoke.CHECK_BATCHES:
+        fb.reset_launch_counts()
+        wa.reset_launch_counts()
+        results = chip_smoke.attention_checks(torch, fb, wa, dname, geom, B)
+        if (geom[0], geom[5]) in chip_smoke.MASKED_ROW_GEOMS:
+            results += chip_smoke.attention_checks(torch, fb, wa, dname, geom, B,
+                                                   masked_row=True)
+        assert all(r[3] <= r[4] for r in results), (B, results)
+        n = len(results) // 2
+        assert fb.launch_counts()["window_attention"] == n
+        assert wa.launch_counts() == {"fused_window_attention": n}
+
+
+@pytest.mark.gpu
 def test_window_attention_kernel_refuses_what_it_does_not_take():
     _need_card()
     q = torch.randn(4, 2, 16, 32, device="cuda")
@@ -190,6 +221,9 @@ def test_window_attention_kernel_refuses_what_it_does_not_take():
         wa.fused_window_attention(q, q, q, torch.zeros(3, 2, 16, 16, device="cuda"), scale)
     with pytest.raises(ValueError):  # f16
         wa.fused_window_attention(*(q.half(),) * 3, bias, scale)
+    qb = torch.randn(q.numel() + 1, device="cuda").to(torch.bfloat16)[1:].view(q.shape)
+    with pytest.raises(ValueError):  # bf16 not 16-byte aligned
+        wa.fused_window_attention(qb, qb, qb, bias.to(torch.bfloat16), scale)
     with pytest.raises(RuntimeError):  # under autograd: the kernel has no backward
         wa.fused_window_attention(q.clone().requires_grad_(), q, q, bias, scale)
     with torch.no_grad():  # the same call without autograd runs

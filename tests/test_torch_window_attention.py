@@ -13,6 +13,9 @@ Tolerances, each with its reason:
   output's scale (2^(floor(log2 max|out|) - 7)). q^ and k^ are f32 on every
   side; the plain version and the Pallas kernel round p to bf16 at the same
   point, the XLA path does not, and each output is rounded to bf16 once.
+* The bf16 attention-only kernel's score product, emulated in PyTorch at
+  L=64 and 256: within one bf16 ulp of the output's scale of the plain
+  version and of the Pallas kernel, as the bf16 case above.
 * The backbone (depths (2, 2): shifted blocks, a patch merge and a
   single-window stage; the config of tests/test_window_attention.py), f32:
   3e-5 of the output's scale, the tolerance of the port's other backbone
@@ -172,3 +175,88 @@ def test_pallas_blocks_hand_the_kernel_what_it_takes(rng, monkeypatch):
         x = torch.from_numpy(rng.normal(size=(2, 32, 32, 3)).astype(np.float32))
         tmod(x.to(torch.bfloat16))
     assert calls == [(True, torch.float32, True, True)] * 4
+
+
+def _kernel_score_inputs(seed, L, shifted, H=2):
+    """bf16 q, k, v of a few windows, the backbone's bias (the CPB-like bias
+    in bf16, or plus the real f32 shift mask) and chip_smoke.py's logit
+    scales (exp(clamp(ln 10 + 0.5 N, ln 100))), from a numpy seed."""
+    from cs_vit_tpu_torch.models.swinv2 import _shift_attn_mask
+
+    rng = np.random.default_rng(seed)
+    ws = int(round(L ** 0.5))
+    res, n_img = 2 * ws, 2 if L == 64 else 1
+    nW = (res // ws) ** 2
+    q, k, v = (rng.normal(size=(n_img * nW, H, L, 32)).astype(np.float32) for _ in range(3))
+    bias = (16 / (1 + np.exp(-rng.normal(size=(1, H, L, L))))).astype(np.float32)
+    bias = bias.astype(jnp.bfloat16).astype(np.float32)  # a bf16 CPB bias
+    if shifted:
+        bias = bias + _shift_attn_mask(res, res, ws, ws // 2)[:, None]
+    scale = np.exp(np.minimum(np.log(10.0) + 0.5 * rng.normal(size=(H,)),
+                              np.log(100.0))).astype(np.float32)
+    tb = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)]
+    tbias = torch.from_numpy(bias) if shifted else torch.from_numpy(bias).to(torch.bfloat16)
+    return tb, tbias, torch.from_numpy(scale)
+
+
+def _kernel_emulation(q, k, v, bias, scale, product):
+    """The bf16 attention-only kernel's arithmetic, in PyTorch f32.
+
+    ``"factored"`` is the kernel's score product: the bf16 q and k as given
+    are exact mma operands, the dot is summed in f32, and the norms go on
+    the f32 score, ``s = (q . k) * (rsqrt_q * scale) * rsqrt_k``. ``"round
+    once"`` rounds q^ and k^ to bf16 once (one product), the design the
+    kernel avoids. The rest is the kernel's: the bias added in f32, the row max,
+    ``e = 2^(s log2e - m log2e)``, p = e * (1 / sum) rounded to bf16, the
+    f32 p.v and one rounding of the output."""
+    B_, H, L, _ = q.shape
+    nW = bias.shape[0]
+    qf, kf = q.float(), k.float()
+    rq = torch.rsqrt((qf * qf).sum(-1, keepdim=True) + 1e-24)
+    rk = torch.rsqrt((kf * kf).sum(-1, keepdim=True) + 1e-24)
+    sc = scale.reshape(1, H, 1, 1)
+    if product == "factored":
+        s = (qf @ kf.transpose(-1, -2)) * ((rq * sc) * rk.transpose(-1, -2))
+    else:
+        qh, kh = (qf * rq).bfloat16().float(), (kf * rk).bfloat16().float()
+        s = (qh @ kh.transpose(-1, -2)) * sc
+    s = (s.reshape(B_ // nW, nW, H, L, L) + bias.float()[None]).reshape(B_, H, L, L)
+    log2e = 1.4426950408889634
+    e = torch.exp2(s * log2e - s.amax(-1, keepdim=True) * log2e)
+    p = (e * (1.0 / e.sum(-1, keepdim=True))).bfloat16()
+    return (p.float() @ v.float()).bfloat16()
+
+
+@pytest.mark.parametrize("L", [64, 256])
+@pytest.mark.parametrize("shifted", [False, True], ids=["bf16_bias", "f32_shift_bias"])
+def test_kernel_score_product_emulation_matches_plain_and_pallas(shifted, L):
+    """The bf16 attention-only kernel keeps q^ and k^ unrounded, as the Pallas
+    kernel does. Its score product (the norms factored out of a product of
+    the bf16 q and k), emulated in PyTorch, lies within one bf16 ulp of the
+    output's largest magnitude of the plain version and of the JAX Pallas
+    kernel (interpret mode), at chip_smoke.py's logit scales, for the
+    unshifted (bf16 bias) and the shifted (f32 bias) case. On these inputs
+    it reads 4.9e-4 to 1.2e-3 of that magnitude from the plain version.
+    Rounding q^ and k^ to bf16 once reads 6.4e-3 to 9.8e-3, growing with the
+    logit scale (printed with ``-s``; not asserted); that is why the kernel
+    does not. A split-bf16 product (q^ and k^ as bf16 hi + lo, three
+    products, f32 sums), the other way to keep them unrounded, read 2.4e-3
+    to 3.9e-3 in an emulation of it on the same inputs, at three times the
+    tensor-core work, so the kernel takes the factored product."""
+    (q, k, v), bias, scale = _kernel_score_inputs(L + int(shifted), L, shifted)
+    want = wa.fused_window_attention_reference(q, k, v, bias, scale).float().numpy()
+    jbias = jnp.asarray(bias.float().numpy())
+    if not shifted:
+        jbias = jbias.astype(jnp.bfloat16)
+    pallas = np.asarray(j_fused_window_attention(
+        *[jnp.asarray(t.float().numpy()).astype(jnp.bfloat16) for t in (q, k, v)], jbias,
+        jnp.asarray(scale.numpy()), interpret=True).astype(jnp.float32))
+    got = _kernel_emulation(q, k, v, bias, scale, "factored")
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    got = got.float().numpy()
+    for ref in (want, pallas):
+        assert np.abs(got - ref).max() <= _bf16_ulp_of_scale(ref)
+    once = _kernel_emulation(q, k, v, bias, scale, "round once").float().numpy()
+    top = np.abs(want).max()
+    print(f"L={L} shifted={shifted}: factored {np.abs(got - want).max() / top:.2e}, "
+          f"round once {np.abs(once - want).max() / top:.2e} of max |out|")
