@@ -10,8 +10,9 @@ order, failing (non-zero exit, no result line) at the first phase that fails:
 
 1. prints the card (``nvidia-smi`` name and power limit), turns TF32 off;
 2. builds the kernels (all four sources at once) and prints the build time
-   and the compiler's register/spill report; fails if a tensor-core window
-   attention kernel (``*_tc_kernel``) spills;
+   and the compiler's register/spill report; fails if a tensor-core kernel
+   (the window-attention ``*_tc_kernel``s, forward and backward, and the
+   ``wgmma`` weight-grad GEMM) spills or is missing from the report;
 3. holds each forward and backward kernel of the whole-block path, the whole
    ``fused_swin_block``, the whole block backward (``FusedSwinBlock``) and
    the attention-only window kernel (``fused_window_attention``) against its
@@ -19,8 +20,11 @@ order, failing (non-zero exit, no result line) at the first phase that fails:
    and without shift, stage 2, stage 3 at L=64), at batch 1, 2 and 8, bf16
    and f32 (the attention-only kernel also at the 3, 24 and 40 images of the
    temporal paths); the two window-attention forward kernels also at a ws 4
-   (L=16) geometry and with one query row's whole bias at -100; a CUDA
-   ``fused_window_attention`` under autograd must raise;
+   (L=16) geometry and with one query row's whole bias at -100, and so is
+   the attention backward; ``gemm_wgrad`` also at WGRAD_EDGE_SHAPES; the
+   bf16 ``gemm_wgrad`` and attention backward launched twice must give
+   bit-identical outputs; a CUDA ``fused_window_attention`` under autograd
+   must raise;
 4. serves the flagship model (Swin-B-256 Poser, img 256, bf16, synthetic
    MANO, seeded random weights) through ``PoserSession`` at batch 1 and 8,
    checks the outputs, the kernel launch counts per forward, and the kernel
@@ -46,10 +50,12 @@ order, failing (non-zero exit, no result line) at the first phase that fails:
    in its three modes, then its entry point (``tools.probe_overlap``);
 9. times every kernel at its path's shapes (batch 8) beside its plain
    version, one library call and its bound (CUDA events around calls as the
-   host issues them, ``cuda_ms``), the two window-attention forward kernels
-   and their SDPA calls also queued behind a sleep kernel (``queued_ms``:
-   the card's time, flagged where the host still fell behind), and the
-   serve latencies;
+   host issues them, ``cuda_ms``), the two window-attention forward
+   kernels, the attention backward, ``gemm_wgrad`` and their library calls
+   also queued behind a sleep kernel (``queued_ms``: the card's time,
+   flagged where the host still fell behind), the attention backward's
+   scratch bytes per call and ``gemm_wgrad``'s split-partial bytes per step,
+   and the serve latencies;
 10. prints each kernel's kernel / library factor, then ``{"kernels": [...]}``,
     then ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -91,6 +97,9 @@ SMALL_GEOMS = ((9, 8, 128, 4, 4, 0, 0), (9, 8, 128, 4, 4, 2, 0))
 # masks whole), checked at these geometries: (stage, shift) of GEOMS /
 # SMALL_GEOMS
 MASKED_ROW_GEOMS = ((0, 8), (9, 2))
+# gemm_wgrad shapes beside the blocks' (M, K, N): M not a multiple of the
+# kernel's 64-row stage, K and N 8 more than a multiple of its 128-wide tile
+WGRAD_EDGE_SHAPES = ((1000, 136, 264), (4104, 520, 136), (33000, 136, 1032))
 KERNEL_SOURCE = "cs_vit_tpu_torch/ops/csrc/fused_block.cu"
 REPLACES = "cs_vit_tpu/ops/fused_block.py:738"
 # kernel vs plain: max |kernel - plain| / max |plain|. f32: only the order of
@@ -417,6 +426,89 @@ def bwd_kernel_checks(torch, fb, dname, geom, B=2):
     ]
 
 
+def attention_bwd_pair(torch, fb, dname, geom, B, masked_row=False):
+    """(kernel, what, got, want) of ``swin_window_attn_bwd`` at one geometry
+    and batch B, each of its three outputs; `masked_row`: the shift mask's
+    query row 0 all at -100 in every window."""
+    stage, res, C, heads, ws, shift, _ = geom
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dname]
+    seed = stage * 10 + shift + 100 * B + 23
+    t = block_inputs(torch, B, res, C, heads, ws, shift, dtype, seed=seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    qkv4 = fb.gemm_bias_act_reference(t["x"].reshape(-1, C), t["wqkv"], t["bqkv"])
+    qkv4 = qkv4.reshape(B, res, res, 3 * C)
+    dout = torch.randn(B, res, res, C, generator=gen).to(DEV, dtype)
+    mask, what = t["mask"], f"L{ws * ws}"
+    if masked_row:
+        mask = mask.clone()
+        mask[:, 0, :] = -100.0
+        what += " row 0 all -100"
+    ops = (qkv4, dout, t["rel_bias"], t["logit_scale"], mask)
+    kw = dict(window_size=ws, num_heads=heads, shift=shift)
+    got = fb.window_attention_bwd(*ops, **kw)
+    want = fb.window_attention_bwd_reference(*ops, **kw)
+    return [("swin_window_attn_bwd", f"{what} {p}", a, b)
+            for p, a, b in zip(("dqkv", "d rel_bias", "d logit_scale"), got, want)]
+
+
+def bwd_edge_checks(torch, fb, dname):
+    """The two redesigned backward kernels beyond the block geometries: the
+    attention backward at the ws 4 (L=16) geometries at every batch and with
+    a query row's whole bias at -100, gemm_wgrad at WGRAD_EDGE_SHAPES:
+    [(kernel, what, max_abs, rel, tol)]."""
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dname]
+    pairs = []
+    for geom in SMALL_GEOMS:
+        for B in CHECK_BATCHES:
+            pairs += attention_bwd_pair(torch, fb, dname, geom, B)
+    for geom in GEOMS + SMALL_GEOMS:
+        if (geom[0], geom[5]) in MASKED_ROW_GEOMS:
+            pairs += attention_bwd_pair(torch, fb, dname, geom, 2, masked_row=True)
+    gen = torch.Generator().manual_seed(31)
+    for M, K, N in WGRAD_EDGE_SHAPES:
+        a = torch.randn(M, K, generator=gen).to(DEV, dtype)
+        dy = torch.randn(M, N, generator=gen).to(DEV)
+        pairs += [("gemm_wgrad", f"M{M} K{K} N{N} {p}", x, y)
+                  for p, x, y in zip(("dW", "db"), fb.gemm_wgrad(a, dy),
+                                     fb.gemm_wgrad_reference(a, dy))]
+    sync(torch)
+    return [(name, what, *rel_err(got, want), TOL[dname]["kernel"])
+            for name, what, got, want in pairs]
+
+
+def check_bit_identical(torch, fb, B=8):
+    """The bf16 gemm_wgrad and swin_window_attn_bwd launched twice on the
+    same inputs at every block geometry (wgrad at its four shapes) give
+    bit-identical outputs: every cross-block sum runs in a fixed order.
+    Returns the number of comparisons."""
+    bf = torch.bfloat16
+    n = 0
+    for stage, res, C, heads, ws, shift, _ in GEOMS:
+        t = block_inputs(torch, B, res, C, heads, ws, shift, bf, seed=400 + stage)
+        gen = torch.Generator().manual_seed(400 + stage)
+        M = B * res * res
+        calls = []
+        for K, N in ((4 * C, C), (C, 4 * C), (C, C), (C, 3 * C)):
+            a = torch.randn(M, K, generator=gen).to(DEV, bf)
+            dy = torch.randn(M, N, generator=gen).to(DEV)
+            calls.append((f"gemm_wgrad K{K} N{N}", lambda a=a, dy=dy: fb.gemm_wgrad(a, dy)))
+        qkv = torch.randn(B, res, res, 3 * C, generator=gen).to(DEV, bf)
+        dout = torch.randn(B, res, res, C, generator=gen).to(DEV, bf)
+        kw = dict(window_size=ws, num_heads=heads, shift=shift)
+        calls.append(("swin_window_attn_bwd", lambda: fb.window_attention_bwd(
+            qkv, dout, t["rel_bias"], t["logit_scale"], t["mask"], **kw)))
+        for what, fn in calls:
+            first = [x.clone() for x in fn()]
+            second = fn()
+            sync(torch)
+            if not all(torch.equal(x, y) for x, y in zip(first, second)):
+                fail(f"{what} at stage{stage} shift{shift} b{B} differs between two launches")
+            n += 1
+    print(f"check: gemm_wgrad and swin_window_attn_bwd bit-identical over two launches "
+          f"({n} comparisons, bf16 b{B})")
+    return n
+
+
 def window_attention_inputs(torch, B, res, C, heads, ws, shift, dtype, seed):
     """Seeded operands of ``fused_window_attention`` at one block geometry,
     as the ``"pallas"`` backbone hands them over: q, k, v [B*nW, heads, L,
@@ -501,16 +593,29 @@ def check_kernels(torch, fb, wa):
                     worst[name] = max(worst[name], err)
             print(f"check {where} worst rel/tol: " + ", ".join(
                 f"{k} {r:.2e}/{t:.0e}" for k, (r, t) in by_kernel.items()))
+        for name, what, err, rel, tol in bwd_edge_checks(torch, fb, dname):
+            n_checks += 1
+            ok = rel <= tol
+            print(f"check {dname} {name} {what}: max_abs={err:.3e} rel={rel:.3e} tol={tol:.1e} "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"{name} ({what}) disagrees with its plain version")
+            if dname == "bf16":
+                worst[name] = max(worst[name], err)
     print(f"check: {n_checks} kernel and block checks ok")
     return worst
 
 
-# the tensor-core instantiations of each library: (kernel, L, variant)
+# the tensor-core instantiations of each library: (kernel, L, variant); the
+# wgmma weight-grad GEMM has no L (0)
 TC_KERNELS = {
     "fused_block": {("window_attn_tc_kernel", L, v)
                     for L in (256, 64, 16) for v in ("masked", "unmasked")},
     "window_attention": {("fused_window_attn_tc_kernel", L, v)
                          for L in (256, 64, 16) for v in ("f32 bias", "bf16 bias")},
+    "fused_block_bwd": {("window_attn_bwd_tc_kernel", L, v)
+                        for L in (256, 64, 16) for v in ("masked", "unmasked")}
+                       | {("wgrad_wgmma_kernel", 0, "bf16")},
 }
 
 
@@ -534,19 +639,24 @@ def ptxas_entries(log: str) -> dict:
 
 
 def check_tc_spills(lib: str, log: str) -> None:
-    """The tensor-core window-attention kernels (``*_tc_kernel``) keep their
-    score block in registers: fail on any spill, and unless the report holds
-    every instantiation of TC_KERNELS[lib]."""
+    """The tensor-core kernels (the window-attention ``*_tc_kernel``s, which
+    keep their score blocks in registers, and the wgmma weight-grad GEMM,
+    which keeps its 64 accumulators there): fail on any spill, and unless the
+    report holds every instantiation of TC_KERNELS[lib]."""
     seen = set()
     for name, (regs, stores, loads) in ptxas_entries(log).items():
-        m = re.search(r"\d((?:fused_)?window_attn_tc_kernel)ILi(\d+)E(f|13__nv_bfloat16|Lb[01]E)",
-                      name)
-        if not m:
+        m = re.search(r"\d((?:fused_)?window_attn(?:_bwd)?_tc_kernel)ILi(\d+)E"
+                      r"(f|13__nv_bfloat16|Lb[01]E)", name)
+        if m:
+            variant = {"f": "f32 bias", "13__nv_bfloat16": "bf16 bias", "Lb1E": "masked",
+                       "Lb0E": "unmasked"}[m.group(3)]
+            key = (m.group(1), int(m.group(2)), variant)
+            what = f"{m.group(1)}<L={m.group(2)}, {variant}>"
+        elif re.search(r"\dwgrad_wgmma_kernel", name):
+            key, what = ("wgrad_wgmma_kernel", 0, "bf16"), "wgrad_wgmma_kernel"
+        else:
             continue
-        variant = {"f": "f32 bias", "13__nv_bfloat16": "bf16 bias", "Lb1E": "masked",
-                   "Lb0E": "unmasked"}[m.group(3)]
-        seen.add((m.group(1), int(m.group(2)), variant))
-        what = f"{m.group(1)}<L={m.group(2)}, {variant}>"
+        seen.add(key)
         print(f"tensor-core kernel {lib}: {what} {regs} registers, spill stores {stores} B, "
               f"spill loads {loads} B")
         if stores or loads:
@@ -1287,11 +1397,17 @@ def time_bwd_kernels(torch, fb, F, B=8, iters=10):
     """Phase 9: the backward kernels at a bf16 b8 step's shapes, per step
     (summed over the 24 blocks), beside their plain versions, one library call
     each (yardsticks: torch.matmul, autograd of F.layer_norm and of SDPA with
-    a float mask) and their bounds."""
+    a float mask) and their bounds; gemm_wgrad and swin_window_attn_bwd and
+    their library calls also queued (queued_ms). Prints the attention
+    backward's scratch bytes per call and gemm_wgrad's split-partial bytes."""
     bf, f32 = torch.bfloat16, torch.float32
     names = ("gemm_dgrad", "gemm_wgrad", "ln_residual_bwd", "swin_window_attn_bwd")
     tot = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes_s": 0.0, "flops_s": 0.0,
                "bound_ms": 0.0} for k in names}
+    for k in ("gemm_wgrad", "swin_window_attn_bwd"):
+        tot[k].update(QUEUED_KEYS)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    partial_bytes = 0
 
     def ms_of(fn):
         return cuda_ms(torch, fn, iters=iters, warmup=2)
@@ -1339,6 +1455,9 @@ def time_bwd_kernels(torch, fb, F, B=8, iters=10):
                 lambda: fb.gemm_wgrad_reference(a, dy), lambda: torch.matmul(a.t(), dyb),
                 M * K * 2 + M * N * 4 + (K * N + N) * 4, 2 * M * N * K + M * N,
                 PEAK_FLOPS["bf16"], f"{what} M{M} K{K} N{N}")
+            queued(torch, tot["gemm_wgrad"], n_blocks, lambda: fb.gemm_wgrad(a, dy),
+                   lambda: torch.matmul(a.t(), dyb), f"stage{stage} shift{shift} gemm_wgrad {what}")
+            partial_bytes += n_blocks * fb.wgrad_partial_bytes(M, K, N, sms)
         # the four input grads: (what, out grad, weight [K,N], aux, epilogue, out dtype)
         for what, N, K, aux, epi, odt in (
             ("mlp2 gelu'", C, Ch, n(M, Ch, dt=bf), "gelu", f32),
@@ -1377,6 +1496,18 @@ def time_bwd_kernels(torch, fb, F, B=8, iters=10):
             lambda: fb.window_attention_bwd_reference(qkv, dout, rb, ls, mk, **kw),
             lambda: torch.autograd.grad(o, (q, k, v), do, retain_graph=True),
             nbytes, 10 * L * hd * M * heads, PEAK_FLOPS["bf16"], f"B{B} L{L} heads{heads}")
+        queued(torch, tot["swin_window_attn_bwd"], n_blocks,
+               lambda: fb.window_attention_bwd(qkv, dout, rb, ls, mk, **kw),
+               lambda: torch.autograd.grad(o, (q, k, v), do, retain_graph=True),
+               f"stage{stage} shift{shift} swin_window_attn_bwd")
+        _, groups = fb._attn_bwd_groups(fb._attn_bwd_resident(qkv, ws, mk is not None),
+                                        heads, nW, B)
+        print(f"scratch swin_window_attn_bwd stage{stage} shift{shift} b{B}: "
+              f"{fb.attn_bwd_scratch_floats(B, nW, heads, L, groups) * 4} bytes per call "
+              f"({groups} image groups; one slot per window of every image: "
+              f"{fb.attn_bwd_scratch_floats(B, nW, heads, L, None) * 4})")
+    print(f"gemm_wgrad split partials per b{B} step: {partial_bytes} bytes written and read "
+          f"({sms} SMs)")
     return tot
 
 
@@ -1558,6 +1689,7 @@ def main() -> int:
 
     with phase("check"):
         worst = check_kernels(torch, fb, wa)
+        check_bit_identical(torch, fb)
         check_window_attention_refuses_grad(torch, wa)
     with phase("serve"):
         s1, s8, request, counts, forwards = serve(torch, fb)

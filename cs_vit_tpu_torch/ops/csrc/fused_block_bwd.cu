@@ -29,35 +29,47 @@
 // compute dtype, gelu'(m1) reads m1 rounded to the compute dtype.
 //
 // What bounds each kernel on the H100, and what the design does about it:
-//  * gemm_dgrad / gemm_wgrad: operations (the 8*C^2 + 16*C^2 FLOPs per token of
-//    the block's four GEMMs, twice). bf16 tiles of 64x128x32 on the tensor
-//    cores (WMMA), weights/activations staged by cp.async, f32 gradients
-//    converted to bf16 as they are staged; two shared-memory buffers. dgrad
-//    reads W in its forward [in,out] layout as a column-major operand, so no
-//    transpose pass runs. wgrad reduces over all M token rows: split-K over row
-//    ranges fills the SMs (stage 0 has only 6 output tiles), f32 partials are
-//    summed in a fixed order; the bias grad is the column sum of the f32
-//    gradient, taken by the blocks of the first output-row tile. f32 operands
-//    run on SIMT FMA (the tensor cores would round them to TF32).
+//  * gemm_dgrad: operations (the 8*C^2 + 16*C^2 FLOPs per token of the
+//    block's four GEMMs, twice). bf16 tiles of 64x128x32 on the tensor cores
+//    (WMMA), weights staged by cp.async, f32 gradients converted to bf16 as
+//    they are staged; two shared-memory buffers. It reads W in its forward
+//    [in,out] layout as a column-major operand, so no transpose pass runs.
+//  * gemm_wgrad: bytes. The product reduces over all M token rows; the f32
+//    gradient dY (4 bytes an element, read once for every 128 output rows)
+//    dominates what it moves. bf16: wgmma (gemm_core.cuh), X by TMA into a
+//    4-stage ring of 128-byte-swizzled MN-major tiles, dY through registers
+//    converted into the bf16 B tile with its column sums (the bias grad)
+//    taken on the way; split-K over row ranges only where the output tiles
+//    leave most SMs idle (stage 0: 1-4 tiles), f32 partials summed in a
+//    fixed order. f32 operands run on SIMT FMA (the tensor cores would round
+//    them to TF32), 64x64 tiles, the bias column sums by the blocks of the
+//    first output-row tile.
 //  * ln_residual_bwd: bytes. One warp per token row, f32 statistics recomputed
 //    from the f32 pre-norm input (E[z^2]-E[z]^2 clamped at 0); per-column
 //    dgamma/dbeta partials in per-warp shared memory, summed per block, then
 //    over blocks.
-//  * swin_window_attn_bwd: operations at the bf16 tensor-core peak, but SIMT f32
-//    math (no tensor cores yet) holds it at the FMA rate. One CUDA block per
-//    (head, window): the L x L scores of a 32-row query tile stay in shared
-//    memory, p is recomputed exactly as the forward kernel computes it, dk and
-//    dv accumulate in shared memory across the query tiles. rowsum(dp*p) is
-//    taken as do . o (o recomputed from p and v). d rel_bias and d logit_scale
-//    are per-window f32 partials, summed over the B*nW windows afterwards.
+//  * swin_window_attn_bwd: latency of its dependent products, not the tensor
+//    cores' rate (81 GFLOP a Swin-B b8 step, 0.08 ms at the bf16 peak) nor
+//    bytes. bf16: mma.sync on the pieces of window_attn_core.cuh, one block
+//    per (head, window position, image group) owning whole windows, so dk and
+//    dv never leave the block as partials; d rel_bias summed over a block's
+//    images in its own slab, so the scratch follows the resident blocks, not
+//    the batch; two barriers per 128 query rows. f32 (the check path):
+//    SIMT, one block per (head, window), the L x L scores of a 32-row query
+//    tile in shared memory, dk and dv accumulated there across the tiles,
+//    d rel_bias and d logit_scale as per-window f32 partials.
+// Every cross-block sum runs in a fixed order: the step is bit-reproducible.
 //
 // Plain C interface for ctypes. Every entry point returns cudaGetLastError()
 // right after its last launch; it launches on the caller's stream, allocates
 // nothing (partials live in caller-provided scratch) and does not synchronise.
 
+#include <limits.h>
 #include <mma.h>
 
 #include "common.cuh"
+#include "gemm_core.cuh"
+#include "window_attn_core.cuh"
 
 namespace {
 
@@ -205,125 +217,188 @@ dgrad_bf16_kernel(const float* __restrict__ dY, const bf16* __restrict__ W,
     }
 }
 
-// wgrad: part[s][K][N] = X[rows of split s, K]^T . round(dY[rows, N]); and,
-// from the blocks of output-row tile 0, part[s][K*N + n] = sum_rows dY[., n]
-// (f32). Output tile rows i (= k), cols j (= n); depth = token rows m.
-__global__ void __launch_bounds__(G_THREADS)
-wgrad_bf16_kernel(const bf16* __restrict__ X, const float* __restrict__ dY,
-                  float* __restrict__ part, int M, int N, int K, int rows_per_split) {
-  namespace nw = nvcuda::wmma;
-  constexpr int A_LD = TM + 8;  // As[m][k]: column-major A, 144 B rows
-  constexpr int B_LD = TN + 8;  // Bs[m][n]: row-major B, 272 B rows
-  __shared__ __align__(128) bf16 As[2][TK * A_LD];
-  __shared__ __align__(128) bf16 Bs[2][TK * B_LD];
-  __shared__ __align__(128) float Cs[G_THREADS / 32][16 * 16];
+// ---------------------------------------------------------------------------
+// gemm_wgrad, bf16: part[s][K][N] = X[rows of split s, K]^T . round(dY[rows, N])
+// and part[s][K*N + n] = sum_rows dY[., n] (f32), on wgmma (gemm_core.cuh).
+// Replaces the weight- and bias-grad products of
+// cs_vit_tpu/ops/fused_block.py:_bwd_kernel (:394), which the TPU grid sums
+// across its sequential steps in f32 output blocks.
+// Output tile 128 (k) x 128 (n), depth = token rows m, 64 rows a stage, a
+// ring of 4 stages. Warpgroup 0 is the producer: one thread keeps the ring full of X by
+// TMA (128-byte-swizzled 64-column atoms, which are wgmma's MN-major A operand
+// as they land). The two consumer warpgroups read the f32 dY tile from device
+// memory into registers one stage ahead (each thread four columns of a few
+// rows) and convert it into the stage's bf16 B operand in the same swizzled
+// MN-major layout, taking the f32 column sums on the way (the bias grad costs
+// no pass of its own); then they fence the generic writes to the async
+// proxy, meet at a named barrier and run 4 wgmma m64n128k16 each (warpgroup
+// w the output rows 64 w .. 64 w + 63). A stage goes back to the
+// producer once both warpgroups' products on it have completed (one wgmma
+// group in flight, so the next stage's conversion overlaps the products).
+// What bounds it on the H100: bytes. Every block reads its dY columns in f32
+// once per 128 output rows, so dY is read K / 128 times: over a Swin-B b8
+// step the operands move 7.2 GB, 2.2 ms at the card's 3.35 TB/s, which is
+// what chip_smoke.py reads for the kernel queued. (Two variants read no
+// faster: the f32 dY tile staged in shared memory by TMA, and 256-row
+// output tiles, whose fewer tiles need more split partials.) Epilogue:
+// f32 pairs straight from the accumulators, the column sums across the 8
+// consumer warps in a fixed order. Split-K (rows_per_split a multiple of 64,
+// so that a split's stages never reach the next split's rows) only where the
+// output tiles leave most of the SMs idle; the partials are summed by
+// sum_splits.
+// ---------------------------------------------------------------------------
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int i0 = blockIdx.y * TM, j0 = blockIdx.x * TN, s = blockIdx.z;
-  const int rb = s * rows_per_split;
+struct WgradShape {
+  static constexpr int BM = 128, BN = 128, BK = 64, STAGES = 4, THREADS = 384;
+  static constexpr int ATOM_BYTES = BK * GC_ATOM_ROW_BYTES;  // BK rows x 128 B
+  static constexpr int X_BYTES = 2 * ATOM_BYTES;             // X: BK rows x 128 cols bf16
+  static constexpr int B_BYTES = 2 * ATOM_BYTES;             // dY as bf16: BK x 128, two atoms
+  static constexpr int STAGE_BYTES = X_BYTES + B_BYTES;
+  static constexpr size_t SMEM = 1024 + (size_t)STAGES * STAGE_BYTES + 8 * BN * 4
+                                 + 2 * STAGES * sizeof(uint64_t);
+};
+
+// the f32 dY rows cw + 8 i (i < BK / 8) of the stage at token row m0, columns
+// j0 + col .. + 3 (zero past the split's end re or past N)
+__device__ __forceinline__ void load_dy_rows(float4 (&dy)[WgradShape::BK / 8],
+                                             const float* __restrict__ dY, int m0, int re, int N,
+                                             int j0, int col, int cw, bool col_in) {
+#pragma unroll
+  for (int i = 0; i < WgradShape::BK / 8; ++i) {
+    const int m = m0 + cw + 8 * i;
+    dy[i] = (col_in && m < re)
+                ? __ldg(reinterpret_cast<const float4*>(dY + (size_t)m * N + j0 + col))
+                : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+}
+
+__global__ void __launch_bounds__(WgradShape::THREADS, 1)
+wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x, const float* __restrict__ dY,
+                   float* __restrict__ part, int M, int N, int K, int rows_per_split) {
+  using S_ = WgradShape;
+  constexpr int BM = S_::BM, BN = S_::BN, BK = S_::BK, STAGES = S_::STAGES;
+  constexpr int ATOM_BYTES = S_::ATOM_BYTES, X_BYTES = S_::X_BYTES, STAGE_BYTES = S_::STAGE_BYTES;
+  extern __shared__ unsigned char wg_raw[];
+  // stages 1024-byte aligned (the swizzle atoms' alignment)
+  unsigned char* smem = wg_raw + ((1024 - (gc_smem(wg_raw) & 1023)) & 1023);
+  float* csum_s = reinterpret_cast<float*>(smem + STAGES * STAGE_BYTES);  // [8][128]
+  uint64_t* full = reinterpret_cast<uint64_t*>(csum_s + 8 * BN);
+  uint64_t* empty = full + STAGES;
+
+  const int tid = threadIdx.x;
+  const int j0 = blockIdx.x * BN, i0 = blockIdx.y * BM, split = blockIdx.z;
+  const int rb = split * rows_per_split;
   const int re = min(M, rb + rows_per_split);
-  const int wr = warp >> 1, wc = warp & 1;
-  float* out = part + (size_t)s * ((size_t)K * N + N);
+  const int iters = re > rb ? (re - rb + BK - 1) / BK : 0;
+  float* out = part + (size_t)split * ((size_t)K * N + N);
 
-  auto load_a = [&](int buf, int m0) {
-    for (int c = tid; c < TK * TM / 8; c += G_THREADS) {
-      const int r = c >> 3, ic = (c & 7) * 8;
-      const int gm = m0 + r, gi = i0 + ic;
-      const bool ok = gm < re && gi < K;
-      cp_async16(&As[buf][r * A_LD + ic], ok ? X + (size_t)gm * K + gi : X, ok);
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * 128);
     }
-    cp_async_commit();
-  };
-  float4 breg[TK * TN / 4 / G_THREADS];  // 8 float4 per thread
-  auto load_b = [&](int m0) {
-#pragma unroll
-    for (int t = 0; t < TK * TN / 4 / G_THREADS; ++t) {
-      const int c = tid + t * G_THREADS;
-      const int r = c >> 5, jc = (c & 31) * 4;
-      const int gm = m0 + r, gj = j0 + jc;
-      breg[t] = (gm < re && gj < N)
-                    ? *reinterpret_cast<const float4*>(dY + (size_t)gm * N + gj)
-                    : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  };
-  auto store_b = [&](int buf) {
-#pragma unroll
-    for (int t = 0; t < TK * TN / 4 / G_THREADS; ++t) {
-      const int c = tid + t * G_THREADS;
-      const int r = c >> 5, jc = (c & 31) * 4;
-      __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&Bs[buf][r * B_LD + jc]);
-      p[0] = __floats2bfloat162_rn(breg[t].x, breg[t].y);
-      p[1] = __floats2bfloat162_rn(breg[t].z, breg[t].w);
-    }
-  };
-
-  nw::fragment<nw::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) nw::fill_fragment(acc[i][j], 0.0f);
-
-  const int nt = (re - rb + TK - 1) / TK;
-  if (nt > 0) {
-    load_a(0, rb);
-    load_b(rb);
-    store_b(0);
-    cp_async_wait<0>();
-    __syncthreads();
+    mbar_fence_init();
   }
-  for (int t = 0; t < nt; ++t) {
-    const int buf = t & 1;
-    const bool more = t + 1 < nt;
-    if (more) {
-      load_a(buf ^ 1, rb + (t + 1) * TK);
-      load_b(rb + (t + 1) * TK);
-    }
-#pragma unroll
-    for (int kk = 0; kk < TK; kk += 16) {
-      nw::fragment<nw::matrix_a, 16, 16, 16, bf16, nw::col_major> af[2];
-      nw::fragment<nw::matrix_b, 16, 16, 16, bf16, nw::row_major> bfr[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        nw::load_matrix_sync(af[i], &As[buf][kk * A_LD + wr * 32 + i * 16], A_LD);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        nw::load_matrix_sync(bfr[j], &Bs[buf][kk * B_LD + wc * 64 + j * 16], B_LD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) nw::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
-    }
-    if (more) {
-      store_b(buf ^ 1);
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-  }
+  __syncthreads();
 
-  float* cs = Cs[warp];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      nw::store_matrix_sync(cs, acc[i][j], 16, nw::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int gi = i0 + wr * 32 + i * 16 + (e >> 4);
-        const int gj = j0 + wc * 64 + j * 16 + (e & 15);
-        if (gi < K && gj < N) out[(size_t)gi * N + gj] = cs[e];
+  if (tid < 128) {  // producer warpgroup: one thread issues every load
+    if (tid == 0) {
+      for (int it = 0; it < iters; ++it) {
+        const int s = it % STAGES;
+        if (it >= STAGES) mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+        unsigned char* st = smem + s * STAGE_BYTES;
+        const int m = rb + it * BK;
+        mbar_arrive_expect_tx(&full[s], X_BYTES);
+        tma_load_2d(st, &tm_x, &full[s], i0, m);
+        tma_load_2d(st + ATOM_BYTES, &tm_x, &full[s], i0 + 64, m);
       }
-      __syncwarp();
     }
+    return;
+  }
 
-  if (blockIdx.y == 0) {
-    for (int j = tid; j < TN; j += G_THREADS) {
-      const int gj = j0 + j;
-      if (gj >= N) continue;
-      float sum = 0.0f;
-      for (int m = rb; m < re; ++m) sum += dY[(size_t)m * N + gj];
-      out[(size_t)K * N + gj] = sum;
+  const int ct = tid - 128, wg = ct >> 7, cw = ct >> 5, lane = tid & 31;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  float cs0 = 0.0f, cs1 = 0.0f, cs2 = 0.0f, cs3 = 0.0f;  // columns 4 lane .. 4 lane + 3
+  const int col = 4 * lane, atom = col >> 6, ac = col & 63;
+  const bool col_in = j0 + col < N;  // N is a multiple of 8: four columns in or out together
+  float4 dy[BK / 8];                 // rows cw + 8 i of the next stage
+  if (iters > 0) load_dy_rows(dy, dY, rb, re, N, j0, col, cw, col_in);
+
+  for (int it = 0; it < iters; ++it) {
+    const int s = it % STAGES;
+    mbar_wait(&full[s], (it / STAGES) & 1);
+    unsigned char* st = smem + s * STAGE_BYTES;
+    unsigned char* bs = st + X_BYTES;
+#pragma unroll
+    for (int i = 0; i < BK / 8; ++i) {
+      const int r = cw + 8 * i;
+      const float4 v = dy[i];
+      cs0 += v.x;
+      cs1 += v.y;
+      cs2 += v.z;
+      cs3 += v.w;
+      uint2 packed;
+      packed.x = pack_bf16(v.x, v.y);
+      packed.y = pack_bf16(v.z, v.w);
+      *reinterpret_cast<uint2*>(bs + atom * ATOM_BYTES + r * GC_ATOM_ROW_BYTES
+                                + ((((ac >> 3) ^ (r & 7))) << 4) + (ac & 7) * 2) = packed;
+    }
+    if (it + 1 < iters) load_dy_rows(dy, dY, rb + (it + 1) * BK, re, N, j0, col, cw, col_in);
+    fence_proxy_async();
+    named_barrier(1, 256);  // both warpgroups' halves of the bf16 tile
+    wgmma_fence();
+    const uint32_t xa = gc_smem(st + wg * ATOM_BYTES), ba = gc_smem(bs);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_m64n128k16_mn(acc, wgmma_desc_mn_sw128(xa + kk * 16 * GC_ATOM_ROW_BYTES, ATOM_BYTES),
+                          wgmma_desc_mn_sw128(ba + kk * 16 * GC_ATOM_ROW_BYTES, ATOM_BYTES));
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous stage's products are done: hand it back
+    if (it > 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+  }
+  wgmma_wait<0>();
+
+  const int wr = (ct & 127) >> 5, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int gj = j0 + j * 8 + 2 * t;
+    if (gj >= N) continue;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int gi = i0 + wg * 64 + wr * 16 + g + 8 * hh;
+      if (gi < K)
+        *reinterpret_cast<float2*>(out + (size_t)gi * N + gj) =
+            make_float2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
     }
   }
+  if (blockIdx.y == 0) {
+    *reinterpret_cast<float4*>(csum_s + cw * BN + col) = make_float4(cs0, cs1, cs2, cs3);
+    named_barrier(1, 256);
+    if (ct < BN && j0 + ct < N) {
+      float sum = 0.0f;
+#pragma unroll
+      for (int w = 0; w < 8; ++w) sum += csum_s[w * BN + ct];
+      out[(size_t)K * N + j0 + ct] = sum;
+    }
+  }
+}
+
+int launch_wgrad_bf16(const bf16* X, const float* dY, float* part, int M, int N, int K,
+                      int splits, int rows_per_split, cudaStream_t st) {
+  using S_ = WgradShape;
+  if (rows_per_split % S_::BK != 0) return (int)cudaErrorInvalidValue;
+  CUtensorMap tx;
+  const int e = encode_2d(&tx, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, X, M, K, 64, S_::BK,
+                          CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e) return e;
+  static int resident[WC_MAX_DEVICES];
+  const int blocks = device_blocks(resident, wgrad_wgmma_kernel, S_::THREADS, S_::SMEM);
+  if (blocks < 0) return -blocks;
+  dim3 grid((N + S_::BN - 1) / S_::BN, (K + S_::BM - 1) / S_::BM, splits);
+  wgrad_wgmma_kernel<<<grid, S_::THREADS, S_::SMEM, st>>>(tx, dY, part, M, N, K, rows_per_split);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -463,7 +538,8 @@ ln_bwd_kernel(const float* __restrict__ z, const GT* __restrict__ g, const DT* _
 }
 
 // ---------------------------------------------------------------------------
-// swin_window_attn_bwd: one CUDA block per (head, window of an image); hd = 32
+// swin_window_attn_bwd, f32 (the check path; the f32 operands would round to
+// TF32 on the tensor cores): one CUDA block per (head, window of an image); hd = 32
 // (one lane per channel), L = ws*ws in {16, 64, 256}, query tiles of
 // min(32, L) rows. Tokens are gathered and scattered at their shifted,
 // partitioned positions by index, as in the forward kernel.
@@ -681,42 +757,564 @@ window_attn_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
   }
 }
 
-template <typename T, int L>
-int launch_attn_bwd(const void* qkv, const void* dout, const void* rel_bias, const void* mask,
-                    const void* scale, void* dqkv, void* part, void* out, int B, int H, int W,
-                    int C, int heads, int ws, int shift, cudaStream_t st) {
-  const size_t smem = AttnBwdShape<L>::smem_floats * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(window_attn_bwd_kernel<T, L>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// dynamic shared memory of `kernel` raised to at least `smem` on the current
+// device, asking the driver only when a launch needs more than the last one
+// (`cache`: a function-local static of each launcher's instantiation)
+template <class Kernel>
+int raise_smem_limit(int (&cache)[WC_MAX_DEVICES], Kernel kernel, size_t smem) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
+  if (dev >= WC_MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (cache[dev] >= (int)smem) return 0;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  cache[dev] = (int)smem;
+  return 0;
+}
+
+// f32 (the check path): SIMT, one block per (head, window of an image), the
+// per-window partials summed by sum_splits
+template <int L>
+int launch_attn_bwd_f32(const void* qkv, const void* dout, const void* rel_bias, const void* mask,
+                        const void* scale, void* dqkv, void* part, void* out, int B, int H, int W,
+                        int C, int heads, int ws, int shift, cudaStream_t st) {
+  const size_t smem = AttnBwdShape<L>::smem_floats * sizeof(float);
+  static int limit[WC_MAX_DEVICES];
+  const int e = raise_smem_limit(limit, window_attn_bwd_kernel<float, L>, smem);
+  if (e != 0) return e;
   const int nWin = B * (H / ws) * (W / ws);
   dim3 grid(heads, nWin);
-  window_attn_bwd_kernel<T, L><<<grid, AB_THREADS, smem, st>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(dout), static_cast<const T*>(rel_bias),
-      static_cast<const T*>(mask), static_cast<const float*>(scale), static_cast<float*>(dqkv),
-      static_cast<float*>(part), H, W, C, heads, ws, shift);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  window_attn_bwd_kernel<float, L><<<grid, AB_THREADS, smem, st>>>(
+      static_cast<const float*>(qkv), static_cast<const float*>(dout),
+      static_cast<const float*>(rel_bias), static_cast<const float*>(mask),
+      static_cast<const float*>(scale), static_cast<float*>(dqkv), static_cast<float*>(part), H,
+      W, C, heads, ws, shift);
+  const cudaError_t le = cudaGetLastError();
+  if (le != cudaSuccess) return (int)le;
   return launch_sum_splits(static_cast<const float*>(part), static_cast<float*>(out), nWin,
                            (size_t)heads * L * L + heads, st);
 }
 
-template <typename T>
-int attn_bwd_dispatch(const void* qkv, const void* dout, const void* rel_bias, const void* mask,
-                      const void* scale, void* dqkv, void* part, void* out, int B, int H, int W,
-                      int C, int heads, int ws, int shift, cudaStream_t st) {
-  switch (ws * ws) {
-    case 16:
-      return launch_attn_bwd<T, 16>(qkv, dout, rel_bias, mask, scale, dqkv, part, out, B, H, W,
-                                    C, heads, ws, shift, st);
-    case 64:
-      return launch_attn_bwd<T, 64>(qkv, dout, rel_bias, mask, scale, dqkv, part, out, B, H, W,
-                                    C, heads, ws, shift, st);
-    case 256:
-      return launch_attn_bwd<T, 256>(qkv, dout, rel_bias, mask, scale, dqkv, part, out, B, H, W,
-                                     C, heads, ws, shift, st);
+// ---------------------------------------------------------------------------
+// swin_window_attn_bwd, bf16: tensor cores (mma.sync m16n8k16 over the
+// pieces of window_attn_core.cuh). One block per (head, window position,
+// group of images); it walks its images one by one and owns, for each, the
+// whole window: all L query rows and all L keys, so dk and dv are summed
+// over the window's queries inside the block and never leave it as partials.
+// NWARP warps (8 at L=256, 4 at L=64, 1 at L=16), 16 query rows each; the
+// window's query rows are taken in HALVES passes of 16 NWARP rows. Per pass:
+//  1. query phase (warp per 16 query rows): s = round(q^) . round(k^)^T,
+//     scaled, plus the bias (and shift-mask) rows, which the warp stages by
+//     cp.async into its own rows of the p and round(ds) tiles (they hold
+//     them until the softmax is done); softmax, p rounded to bf16 and stored
+//     to shared memory: at L <= 64 the forward core's full row in registers,
+//     at L = 256 three sweeps over 128-key blocks (max, sum, p), which leave
+//     the registers the rest of the kernel needs. p is read back from shared
+//     memory as the A operand: o = p . v in f32 and D = do . o (the plain
+//     version's rowsum(dp * p), rounded where it rounds it); then per 16
+//     keys dp = do . v^T, ds = p (dp - D) in f32 (added to the block's d
+//     rel_bias slab), round(ds) stored to shared memory and, as the A
+//     operand (C layout = A layout), dq^ += round(ds) . k^. dq^ is whole in
+//     the warp's registers: the q-normalisation backward runs there (quad
+//     sums) and dq is written.
+//  2. key phase (warp per KW = L / NWARP keys): over the pass's query tiles,
+//     p^T and round(ds)^T by ldmatrix.trans of the stored tiles are the A
+//     operands of dv += p^T . do and dk^ += round(ds)^T . q^; dv and dk^
+//     stay in registers over both passes, then the k-normalisation backward
+//     and dk, dv written.
+// Two barriers per pass and two per image, none inside either phase's loop.
+// Replaces the attention half of cs_vit_tpu/ops/fused_block.py:_bwd_kernel
+// (:394). What bounds it on the H100: the latency of its dependent products
+// and barriers at 8 warps an SM (one 199 KB block), not the tensor cores'
+// rate (81 GFLOP a Swin-B b8 step: 0.08 ms at the bf16 peak) nor bytes.
+// d rel_bias: the block's [L, L] f32 slab in the caller's scratch, slot
+// (window position, image group) of [nW * groups][heads * L * L + heads];
+// written by the block's first image and added to, element by element by the
+// same thread, by the next ones; summed over the slots by sum_splits. The
+// scratch depends on the number of groups, which the caller sizes to the
+// resident blocks, not on B. d logit_scale: each block's sum of
+// (ds k^) . q^ (q^ in f32) over its images, in a fixed order. No atomics.
+// ---------------------------------------------------------------------------
+
+template <int L>
+struct AttnBwdTc {
+  static constexpr int NWARP = L == 256 ? 8 : (L == 64 ? 4 : 1);
+  static constexpr int THREADS = 32 * NWARP;
+  static constexpr int KW = L / NWARP;   // keys per warp in the key phase
+  static constexpr int KT = KW / 16;     // 16-key tiles per warp
+  static constexpr int HR = 16 * NWARP;  // query rows per pass
+  static constexpr int HALVES = L / HR;  // passes per image
+  static constexpr int PLD = L + 8;      // p / ds rows: an ldmatrix phase's 8 rows in distinct banks
+  static constexpr int WS = L == 256 ? 16 : (L == 64 ? 8 : 4);
+  static constexpr int CHUNKS = L * 4 / THREADS;  // 16-byte chunks of a [L][32] tile per thread
+  static constexpr size_t smem_bytes =
+      4 * (size_t)L * WC_HD * sizeof(bf16)   // k^, v, q^, do
+      + 2 * (size_t)HR * PLD * sizeof(bf16)  // p and round(ds) of a pass
+      + NWARP * sizeof(float)                // the warps' d logit_scale sums
+      + L * sizeof(int);                     // the window's token indices
+};
+
+// The softmax of a warp's 16 rows in three sweeps over 128-key blocks (row
+// max, row sum, then p rounded to bf16 and stored to `prow`: rows g and
+// g + 8 of 16, row stride ld), with 64 score registers a thread where the
+// full row takes 128. Each sweep recomputes the same scores by the same
+// instructions as window_scores / window_softmax, and the sums run over the
+// keys in the same order, so p is bit-identical to the full-row variant's.
+template <int L, class Bias>
+__device__ __forceinline__ void softmax_to_smem(const uint32_t (&qa)[2][4], const bf16* Ks,
+                                                float lam, const Bias& bias, bf16* prow,
+                                                int ld) {
+  constexpr int HK = 128;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float m0 = -INFINITY, m1 = -INFINITY, sum0 = 0.0f, sum1 = 0.0f;
+  float n0 = 0.0f, n1 = 0.0f, inv0 = 0.0f, inv1 = 0.0f;
+#pragma unroll 1
+  for (int sweep = 0; sweep < 3; ++sweep) {
+#pragma unroll 1
+    for (int hk = 0; hk < L / HK; ++hk) {
+      float sc[HK / 8][4];
+      window_scores<HK>(sc, qa, Ks + hk * HK * WC_HD);
+#pragma unroll
+      for (int j = 0; j < HK / 8; ++j) {
+        const int c = hk * HK + j * 8 + 2 * t;
+        const float2 r0 = bias(g, c), r1 = bias(g + 8, c);
+        const float s0 = sc[j][0] * lam + r0.x, s1 = sc[j][1] * lam + r0.y;
+        const float s2 = sc[j][2] * lam + r1.x, s3 = sc[j][3] * lam + r1.y;
+        if (sweep == 0) {
+          m0 = fmaxf(m0, fmaxf(s0, s1));
+          m1 = fmaxf(m1, fmaxf(s2, s3));
+          continue;
+        }
+        const float e0 = ex2(fmaf(s0, WC_LOG2E, n0)), e1 = ex2(fmaf(s1, WC_LOG2E, n0));
+        const float e2 = ex2(fmaf(s2, WC_LOG2E, n1)), e3 = ex2(fmaf(s3, WC_LOG2E, n1));
+        if (sweep == 1) {
+          sum0 += e0 + e1;
+          sum1 += e2 + e3;
+        } else {
+          *reinterpret_cast<uint32_t*>(prow + g * ld + c) = pack_bf16(e0 * inv0, e1 * inv0);
+          *reinterpret_cast<uint32_t*>(prow + (g + 8) * ld + c) = pack_bf16(e2 * inv1, e3 * inv1);
+        }
+      }
+    }
+    if (sweep == 0) {
+      n0 = -quad_max(m0) * WC_LOG2E;
+      n1 = -quad_max(m1) * WC_LOG2E;
+    } else if (sweep == 1) {
+      inv0 = 1.0f / quad_sum(sum0);
+      inv1 = 1.0f / quad_sum(sum1);
+    }
   }
-  return (int)cudaErrorInvalidValue;
+}
+
+// token (row * W + column) of window token l of the shifted window (wr, wc):
+// ((wr WS + l / WS + shift) mod H, (wc WS + l % WS + shift) mod W)
+template <int WS>
+__device__ __forceinline__ int window_token(int l, int wr, int wc, int shift, int H, int W) {
+  return ((wr * WS + l / WS + shift) % H) * W + (wc * WS + l % WS + shift) % W;
+}
+
+template <int L, bool MASKED>
+__global__ void __launch_bounds__(AttnBwdTc<L>::THREADS, 1)
+window_attn_bwd_tc_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
+                          const bf16* __restrict__ rel_bias, const bf16* __restrict__ mask,
+                          const float* __restrict__ scale, float* __restrict__ dqkv,
+                          float* __restrict__ part, int B, int H, int W, int C, int heads,
+                          int shift, int per_group) {
+  using S_ = AttnBwdTc<L>;
+  constexpr int NWARP = S_::NWARP, THREADS = S_::THREADS, KW = S_::KW, KT = S_::KT;
+  constexpr int HR = S_::HR, HALVES = S_::HALVES, PLD = S_::PLD, WS = S_::WS;
+  constexpr int CHUNKS = S_::CHUNKS;
+  extern __shared__ __align__(16) unsigned char ab_smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(ab_smem);  // [L][32] swizzled: k, then k^
+  bf16* Vs = Ks + L * WC_HD;                    // v
+  bf16* Qs = Vs + L * WC_HD;                    // q, then q^
+  bf16* Os = Qs + L * WC_HD;                    // do
+  bf16* P = Os + L * WC_HD;                     // [HR][PLD] p of the pass
+  bf16* DS = P + HR * PLD;                      // [HR][PLD] round(ds) of the pass
+  float* red = reinterpret_cast<float*>(DS + HR * PLD);  // [NWARP]
+  int* Tok = reinterpret_cast<int*>(red + NWARP);        // [L]
+
+  const int nWc = W / WS;
+  const int h = blockIdx.x, w = blockIdx.y;
+  const int b0 = blockIdx.z * per_group, b1 = min(B, b0 + per_group);
+  const int wr = w / nWc, wc = w % nWc;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const float lam = scale[h];
+  float* slot = part + ((size_t)w * gridDim.z + blockIdx.z) * ((size_t)heads * L * L + heads);
+  float* drb = slot + (size_t)h * L * L;
+  const size_t C3 = 3 * (size_t)C;
+  const size_t img_qkv = (size_t)H * W * C3, img_do = (size_t)H * W * C;
+
+  // the window's token indices (row * W + column within the image), once:
+  // index arithmetic held in registers would not fit beside the L=256 scores
+  for (int l = tid; l < L; l += THREADS) Tok[l] = window_token<WS>(l, wr, wc, shift, H, W);
+  __syncthreads();
+  float dlam = 0.0f;  // this thread's share of sum (ds k^) . q^
+  const int kb = warp * KW;  // the key phase's keys of this warp
+
+  for (int b = b0; b < b1; ++b) {
+    {
+      int off3[CHUNKS], off1[CHUNKS];  // this thread's chunks of the q/k/v and do tiles
+#pragma unroll
+      for (int i = 0; i < CHUNKS; ++i) {
+        const int c = tid + i * THREADS, tok = Tok[c >> 2];
+        off3[i] = tok * 3 * C + h * WC_HD + (c & 3) * 8;
+        off1[i] = tok * C + h * WC_HD + (c & 3) * 8;
+      }
+      const bf16* qkv_b = qkv + b * img_qkv;
+      gather_rows<THREADS>(Qs, qkv_b, off3);
+      gather_rows<THREADS>(Ks, qkv_b + C, off3);
+      gather_rows<THREADS>(Vs, qkv_b + 2 * C, off3);
+      gather_rows<THREADS>(Os, dout + b * img_do, off1);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    // k^ and q^: x * rsqrt(sum x^2 + 1e-24), rounded to bf16, in place (L * 4
+    // is a multiple of THREADS, so every lane of a quad takes each step)
+    for (int c = tid; c < L * 4; c += THREADS) {
+#pragma unroll
+      for (int which = 0; which < 2; ++which) {
+        bf16* chunk = (which ? Qs : Ks) + swz(c >> 2, c & 3);
+        float f[8];
+        const float r = rsqrtf(chunk_row_sumsq(chunk, f) + 1e-24f);
+        uint4 packed;
+        packed.x = pack_bf16(f[0] * r, f[1] * r);
+        packed.y = pack_bf16(f[2] * r, f[3] * r);
+        packed.z = pack_bf16(f[4] * r, f[5] * r);
+        packed.w = pack_bf16(f[6] * r, f[7] * r);
+        *reinterpret_cast<uint4*>(chunk) = packed;
+      }
+    }
+    __syncthreads();
+
+#pragma unroll 1
+    for (int half = 0; half < HALVES; ++half) {
+      // 1. query phase: this warp's rows q0 .. q0 + 15 (r0 .. r0 + 15 of the pass)
+      {
+        const int r0 = warp * 16, q0 = half * HR + r0;
+        // the rows' bias (and mask) staged into this warp's rows of the
+        // round(ds) (and p) tiles, which hold them until the softmax is done
+        bf16* my_ds = DS + r0 * PLD;
+        bf16* my_p = P + r0 * PLD;
+        stage_rows(my_ds, PLD, rel_bias + ((size_t)h * L + q0) * L, L, 16, L, lane, 32);
+        if (MASKED) stage_rows(my_p, PLD, mask + ((size_t)w * L + q0) * L, L, 16, L, lane, 32);
+        cp_async_commit();
+        // q of this lane's rows, for the q-normalisation backward at the end:
+        // into L1 now, read then (no registers held across the softmax)
+        const size_t qrow0 = b * img_qkv + (size_t)Tok[q0 + g] * C3
+                             + (size_t)h * WC_HD + 2 * t;
+        const size_t qrow1 = b * img_qkv + (size_t)Tok[q0 + g + 8] * C3
+                             + (size_t)h * WC_HD + 2 * t;
+        asm volatile("prefetch.global.L1 [%0];" ::"l"(qkv + qrow0));
+        asm volatile("prefetch.global.L1 [%0];" ::"l"(qkv + qrow1));
+        uint32_t qa[2][4];
+        load_q_frags(qa, Qs + q0 * WC_HD);
+        // p to shared memory (into the mask rows' place, each element after
+        // the thread that reads it has read it); from here on p is read back
+        // from there as the A fragments of the p . v and ds products
+        const SmemBias<bf16, MASKED> bias_at{my_ds, my_p, PLD};
+        if constexpr (L == 256) {
+          cp_async_wait<0>();
+          __syncwarp();
+          softmax_to_smem<L>(qa, Ks, lam, bias_at, my_p, PLD);
+        } else {
+          uint32_t pa[L / 16][4];
+          float s[L / 8][4];
+          window_scores<L>(s, qa, Ks);
+          cp_async_wait<0>();
+          __syncwarp();
+          window_softmax<L, false>(s, lam, lam, nullptr, bias_at, pa);
+          bf16* p0 = my_p + g * PLD + 2 * t;
+#pragma unroll
+          for (int kk = 0; kk < L / 16; ++kk) {
+            *reinterpret_cast<uint32_t*>(p0 + 16 * kk) = pa[kk][0];
+            *reinterpret_cast<uint32_t*>(p0 + 8 * PLD + 16 * kk) = pa[kk][1];
+            *reinterpret_cast<uint32_t*>(p0 + 16 * kk + 8) = pa[kk][2];
+            *reinterpret_cast<uint32_t*>(p0 + 8 * PLD + 16 * kk + 8) = pa[kk][3];
+          }
+        }
+        __syncwarp();  // p, and every lane is done with the staged rows
+        float o[4][4];
+        const bf16* pfr = my_p + ((lane & 7) + ((lane >> 3) & 1) * 8) * PLD + (lane >> 4) * 8;
+#pragma unroll
+        for (int n = 0; n < 4; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+#pragma unroll
+        for (int kk = 0; kk < L / 16; ++kk) {
+          uint32_t pk[4];
+          ldsm_x4(pk, pfr + 16 * kk);
+#pragma unroll
+          for (int np = 0; np < 2; ++np) {
+            uint32_t vb[4];
+            ldsm_x4_trans(vb, Vs + swz(kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                       np * 2 + (lane >> 4)));
+            mma_bf16(o[2 * np], pk, vb[0], vb[1]);
+            mma_bf16(o[2 * np + 1], pk, vb[2], vb[3]);
+          }
+        }
+        float D0 = 0.0f, D1 = 0.0f;
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const float2 x0 = unpack_bf16(
+              *reinterpret_cast<const uint32_t*>(Os + swz(q0 + g, n) + 2 * t));
+          const float2 x1 = unpack_bf16(
+              *reinterpret_cast<const uint32_t*>(Os + swz(q0 + g + 8, n) + 2 * t));
+          D0 += o[n][0] * x0.x + o[n][1] * x0.y;
+          D1 += o[n][2] * x1.x + o[n][3] * x1.y;
+        }
+        D0 = quad_sum(D0);
+        D1 = quad_sum(D1);
+        uint32_t da[2][4];  // do of the rows: A fragments [q x hd]
+        load_q_frags(da, Os + q0 * WC_HD);
+        float dq[4][4];
+#pragma unroll
+        for (int n = 0; n < 4; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.0f;
+        float* drow0 = drb + (size_t)(q0 + g) * L + 2 * t;
+        float* drow1 = drow0 + 8 * L;
+#pragma unroll 2
+        for (int kk = 0; kk < L / 16; ++kk) {
+          uint32_t pk[4];  // p of the 16 keys: A fragments
+          ldsm_x4(pk, pfr + 16 * kk);
+          float ds[2][4];
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            uint32_t vb[4];  // v rows 16 kk + 8 j as the B operand [hd x key]
+            ldsm_x4(vb, Vs + swz(kk * 16 + j * 8 + (lane & 7), lane >> 3));
+            float dp[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+            mma_bf16(dp, da[0], vb[0], vb[1]);
+            mma_bf16(dp, da[1], vb[2], vb[3]);
+            const float2 p0 = unpack_bf16(pk[2 * j]), p1 = unpack_bf16(pk[2 * j + 1]);
+            ds[j][0] = p0.x * (dp[0] - D0);
+            ds[j][1] = p0.y * (dp[1] - D0);
+            ds[j][2] = p1.x * (dp[2] - D1);
+            ds[j][3] = p1.y * (dp[3] - D1);
+            // d rel_bias[q][key], q = q0 + g (+8), key = 16 kk + 8 j + 2 t (+1)
+            float2* d0 = reinterpret_cast<float2*>(drow0 + 16 * kk + 8 * j);
+            float2* d1 = reinterpret_cast<float2*>(drow1 + 16 * kk + 8 * j);
+            if (b == b0) {
+              *d0 = make_float2(ds[j][0], ds[j][1]);
+              *d1 = make_float2(ds[j][2], ds[j][3]);
+            } else {
+              const float2 e0 = *d0, e1 = *d1;
+              *d0 = make_float2(e0.x + ds[j][0], e0.y + ds[j][1]);
+              *d1 = make_float2(e1.x + ds[j][2], e1.y + ds[j][3]);
+            }
+          }
+          uint32_t dsa[4];  // round(ds) [q x 16 keys]: A fragments
+          dsa[0] = pack_bf16(ds[0][0], ds[0][1]);
+          dsa[1] = pack_bf16(ds[0][2], ds[0][3]);
+          dsa[2] = pack_bf16(ds[1][0], ds[1][1]);
+          dsa[3] = pack_bf16(ds[1][2], ds[1][3]);
+          bf16* s0 = my_ds + g * PLD + 2 * t + 16 * kk;
+          *reinterpret_cast<uint32_t*>(s0) = dsa[0];
+          *reinterpret_cast<uint32_t*>(s0 + 8 * PLD) = dsa[1];
+          *reinterpret_cast<uint32_t*>(s0 + 8) = dsa[2];
+          *reinterpret_cast<uint32_t*>(s0 + 8 * PLD + 8) = dsa[3];
+#pragma unroll
+          for (int np = 0; np < 2; ++np) {
+            uint32_t kbf[4];  // k^ rows 16 kk .. as the B operand [key x hd]
+            ldsm_x4_trans(kbf, Ks + swz(kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                        np * 2 + (lane >> 4)));
+            mma_bf16(dq[2 * np], dsa, kbf[0], kbf[1]);
+            mma_bf16(dq[2 * np + 1], dsa, kbf[2], kbf[3]);
+          }
+        }
+        // q-normalisation backward (eps 1e-24): rows g and g + 8, this lane's
+        // head dims 8 n + 2 t, + 1; row sums over the quad
+        float ss0 = 0.0f, ss1 = 0.0f;
+        float2 qv[2][4];
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          qv[0][n] = unpack_bf16(*reinterpret_cast<const uint32_t*>(qkv + qrow0 + n * 8));
+          qv[1][n] = unpack_bf16(*reinterpret_cast<const uint32_t*>(qkv + qrow1 + n * 8));
+          ss0 += qv[0][n].x * qv[0][n].x + qv[0][n].y * qv[0][n].y;
+          ss1 += qv[1][n].x * qv[1][n].x + qv[1][n].y * qv[1][n].y;
+        }
+        const float rq[2] = {rsqrtf(quad_sum(ss0) + 1e-24f), rsqrtf(quad_sum(ss1) + 1e-24f)};
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float dot = 0.0f;
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            const float a0 = dq[n][2 * hh], a1 = dq[n][2 * hh + 1];
+            dlam = fmaf(a0, qv[hh][n].x * rq[hh], dlam);
+            dlam = fmaf(a1, qv[hh][n].y * rq[hh], dlam);
+            dot += lam * a0 * qv[hh][n].x + lam * a1 * qv[hh][n].y;
+          }
+          dot = quad_sum(dot);
+          float* out = dqkv + (hh ? qrow1 : qrow0);
+#pragma unroll
+          for (int n = 0; n < 4; ++n) {
+            const float n0 = lam * dq[n][2 * hh], n1 = lam * dq[n][2 * hh + 1];
+            const float r = rq[hh];
+            *reinterpret_cast<float2*>(out + n * 8) =
+                make_float2(r * (n0 - qv[hh][n].x * r * r * dot),
+                            r * (n1 - qv[hh][n].y * r * r * dot));
+          }
+        }
+      }
+      __syncthreads();  // the pass's p and round(ds)
+
+      // 2. key phase: this warp's keys kb .. kb + KW - 1 against the pass's
+      // rows. dv and dk^ of the earlier passes wait in this warp's own dk and
+      // dv slots of dqkv (f32), so no accumulator is live across a query phase.
+      {
+        float dv[KT][4][4], dk[KT][4][4];
+#pragma unroll
+        for (int mt = 0; mt < KT; ++mt)
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) dv[mt][n][i] = dk[mt][n][i] = 0.0f;
+        size_t kbase[KT][2];  // dqkv offset of this lane's key rows g, g + 8 (head dims 2 t ..)
+#pragma unroll
+        for (int mt = 0; mt < KT; ++mt)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+            kbase[mt][hh] = b * img_qkv + (size_t)Tok[kb + 16 * mt + g + 8 * hh] * C3
+                            + (size_t)h * WC_HD + 2 * t;
+        if (half > 0) {  // the earlier passes' sums into L1 while the products run
+#pragma unroll
+          for (int mt = 0; mt < KT; ++mt)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              asm volatile("prefetch.global.L1 [%0];" ::"l"(dqkv + kbase[mt][hh] + C));
+              asm volatile("prefetch.global.L1 [%0];" ::"l"(dqkv + kbase[mt][hh] + 2 * C));
+            }
+        }
+#pragma unroll 2
+        for (int qt = 0; qt < NWARP; ++qt) {
+          const int r0 = qt * 16, q0 = half * HR + r0;
+          const int tr = q0 + (lane & 7) + ((lane >> 3) & 1) * 8;  // ldmatrix.trans row of [q][hd]
+          uint32_t pt[KT][4], dst[KT][4];  // p^T and round(ds)^T [16 keys x 16 q]: A fragments
+#pragma unroll
+          for (int mt = 0; mt < KT; ++mt) {
+            const int pr = r0 + (lane & 7) + ((lane >> 4) & 1) * 8;
+            const int pk = kb + 16 * mt + ((lane >> 3) & 1) * 8;
+            ldsm_x4_trans(pt[mt], P + pr * PLD + pk);
+            ldsm_x4_trans(dst[mt], DS + pr * PLD + pk);
+          }
+#pragma unroll
+          for (int np = 0; np < 2; ++np) {
+            uint32_t ot[4], qtr[4];  // do and q^ rows as B operands [q x hd]
+            ldsm_x4_trans(ot, Os + swz(tr, np * 2 + (lane >> 4)));
+            ldsm_x4_trans(qtr, Qs + swz(tr, np * 2 + (lane >> 4)));
+#pragma unroll
+            for (int mt = 0; mt < KT; ++mt) {
+              mma_bf16(dv[mt][2 * np], pt[mt], ot[0], ot[1]);
+              mma_bf16(dv[mt][2 * np + 1], pt[mt], ot[2], ot[3]);
+              mma_bf16(dk[mt][2 * np], dst[mt], qtr[0], qtr[1]);
+              mma_bf16(dk[mt][2 * np + 1], dst[mt], qtr[2], qtr[3]);
+            }
+          }
+        }
+        if (half > 0) {
+#pragma unroll
+          for (int mt = 0; mt < KT; ++mt)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+              for (int n = 0; n < 4; ++n) {
+                const float2 pk = *reinterpret_cast<const float2*>(dqkv + kbase[mt][hh] + C + n * 8);
+                const float2 pv = *reinterpret_cast<const float2*>(dqkv + kbase[mt][hh] + 2 * C + n * 8);
+                dk[mt][n][2 * hh] += pk.x;
+                dk[mt][n][2 * hh + 1] += pk.y;
+                dv[mt][n][2 * hh] += pv.x;
+                dv[mt][n][2 * hh + 1] += pv.y;
+              }
+        }
+#pragma unroll
+        for (int mt = 0; mt < KT; ++mt)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            float* base = dqkv + kbase[mt][hh];
+            if (half + 1 < HALVES) {  // park the sums for the next pass
+#pragma unroll
+              for (int n = 0; n < 4; ++n) {
+                *reinterpret_cast<float2*>(base + C + n * 8) =
+                    make_float2(dk[mt][n][2 * hh], dk[mt][n][2 * hh + 1]);
+                *reinterpret_cast<float2*>(base + 2 * C + n * 8) =
+                    make_float2(dv[mt][n][2 * hh], dv[mt][n][2 * hh + 1]);
+              }
+              continue;
+            }
+            // dk (k-normalisation backward, eps 1e-24) and dv of this key row
+            float2 kv[4];
+            float ss = 0.0f, dot = 0.0f;
+#pragma unroll
+            for (int n = 0; n < 4; ++n) {
+              kv[n] = unpack_bf16(*reinterpret_cast<const uint32_t*>(qkv + kbase[mt][hh] + C + n * 8));
+              ss += kv[n].x * kv[n].x + kv[n].y * kv[n].y;
+              dot += lam * (dk[mt][n][2 * hh] * kv[n].x + dk[mt][n][2 * hh + 1] * kv[n].y);
+            }
+            const float rk = rsqrtf(quad_sum(ss) + 1e-24f);
+            dot = quad_sum(dot);
+#pragma unroll
+            for (int n = 0; n < 4; ++n) {
+              const float k0 = lam * dk[mt][n][2 * hh], k1 = lam * dk[mt][n][2 * hh + 1];
+              *reinterpret_cast<float2*>(base + C + n * 8) =
+                  make_float2(rk * (k0 - kv[n].x * rk * rk * dot),
+                              rk * (k1 - kv[n].y * rk * rk * dot));
+              *reinterpret_cast<float2*>(base + 2 * C + n * 8) =
+                  make_float2(dv[mt][n][2 * hh], dv[mt][n][2 * hh + 1]);
+            }
+          }
+      }
+      __syncthreads();  // every warp is done with the pass's tiles
+    }
+  }
+
+  // d logit_scale: the block's sum, warps in order
+  const float wl = warp_sum(dlam);
+  if (lane == 0) red[warp] = wl;
+  __syncthreads();
+  if (tid == 0) {
+    float sum = 0.0f;
+    for (int i = 0; i < NWARP; ++i) sum += red[i];
+    slot[(size_t)heads * L * L + h] = sum;
+  }
+}
+
+template <int L, bool MASKED>
+int attn_bwd_tc_resident(int (&blocks)) {
+  static int resident[WC_MAX_DEVICES];
+  blocks = device_blocks(resident, window_attn_bwd_tc_kernel<L, MASKED>, AttnBwdTc<L>::THREADS,
+                         AttnBwdTc<L>::smem_bytes);
+  return blocks < 0 ? -blocks : 0;
+}
+
+template <int L, bool MASKED>
+int launch_attn_bwd_tc(const void* qkv, const void* dout, const void* rel_bias, const void* mask,
+                       const void* scale, void* dqkv, void* part, void* out, int B, int H, int W,
+                       int C, int heads, int ws, int shift, int per_group, cudaStream_t st) {
+  if ((long long)H * W * 3 * C > INT_MAX || per_group < 1) return (int)cudaErrorInvalidValue;
+  int blocks = 0;
+  const int e = attn_bwd_tc_resident<L, MASKED>(blocks);
+  if (e != 0) return e;
+  const int nW = (H / ws) * (W / ws), groups = (B + per_group - 1) / per_group;
+  dim3 grid(heads, nW, groups);
+  window_attn_bwd_tc_kernel<L, MASKED><<<grid, AttnBwdTc<L>::THREADS, AttnBwdTc<L>::smem_bytes,
+                                         st>>>(
+      static_cast<const bf16*>(qkv), static_cast<const bf16*>(dout),
+      static_cast<const bf16*>(rel_bias), static_cast<const bf16*>(mask),
+      static_cast<const float*>(scale), static_cast<float*>(dqkv), static_cast<float*>(part), B,
+      H, W, C, heads, shift, per_group);
+  const cudaError_t le = cudaGetLastError();
+  if (le != cudaSuccess) return (int)le;
+  return launch_sum_splits(static_cast<const float*>(part), static_cast<float*>(out), nW * groups,
+                           (size_t)heads * L * L + heads, st);
+}
+
+#define ATTN_BWD_ARGS qkv, dout, rel_bias, mask, scale, dqkv, part, out, B, H, W, C, heads, ws, shift
+
+template <int L>
+int launch_attn_bwd_bf16(const void* qkv, const void* dout, const void* rel_bias,
+                         const void* mask, const void* scale, void* dqkv, void* part, void* out,
+                         int B, int H, int W, int C, int heads, int ws, int shift, int per_group,
+                         cudaStream_t st) {
+  if (mask) return launch_attn_bwd_tc<L, true>(ATTN_BWD_ARGS, per_group, st);
+  return launch_attn_bwd_tc<L, false>(ATTN_BWD_ARGS, per_group, st);
 }
 
 }  // namespace
@@ -772,9 +1370,9 @@ extern "C" int gemm_wgrad(const void* X, const void* dY, void* part, void* out, 
   const float* dy = static_cast<const float*>(dY);
   float* p = static_cast<float*>(part);
   if (dt_code == 1) {
-    dim3 grid((N + TN - 1) / TN, (K + TM - 1) / TM, splits);
-    wgrad_bf16_kernel<<<grid, G_THREADS, 0, st>>>(static_cast<const bf16*>(X), dy, p, M, N, K,
-                                                  rows_per_split);
+    const int e = launch_wgrad_bf16(static_cast<const bf16*>(X), dy, p, M, N, K, splits,
+                                    rows_per_split, st);
+    if (e != 0) return e;
   } else {
     dim3 grid((N + FB - 1) / FB, (K + FB - 1) / FB, splits);
     gemm_f32_strided_kernel<EPI_NONE, float><<<grid, 256, 0, st>>>(
@@ -798,10 +1396,9 @@ extern "C" int ln_residual_bwd(const void* z, const void* g, const void* gamma, 
   float* pf = static_cast<float*>(part);
 #define LNB(GT, DT)                                                                         \
   do {                                                                                      \
-    cudaError_t e = cudaFuncSetAttribute(ln_bwd_kernel<GT, DT>,                             \
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,       \
-                                         (int)smem);                                        \
-    if (e != cudaSuccess) return (int)e;                                                    \
+    static int limit[WC_MAX_DEVICES];                                                       \
+    const int e = raise_smem_limit(limit, ln_bwd_kernel<GT, DT>, smem);                     \
+    if (e != 0) return e;                                                                   \
     ln_bwd_kernel<GT, DT><<<blocks, LN_THREADS, smem, st>>>(                                \
         zf, static_cast<const GT*>(g), static_cast<const DT*>(gamma), d, dp_col,            \
         rows_per_image, dzf, pf, M, C, eps, rows_per_block);                                \
@@ -817,16 +1414,43 @@ extern "C" int ln_residual_bwd(const void* z, const void* g, const void* gamma, 
   return launch_sum_splits(pf, static_cast<float*>(out), blocks, 2 * (size_t)C, st);
 }
 
-// dqkv [B,H,W,3C] f32 (every element written); part [B*nW][heads*L*L + heads]
-// scratch; out [heads*L*L + heads] = (d rel_bias, d logit_scale) f32.
+// dqkv [B,H,W,3C] f32 (every element written); out [heads*L*L + heads] =
+// (d rel_bias, d logit_scale) f32. part: scratch of [B*nW][heads*L*L + heads]
+// f32 (f32) or [nW*groups][heads*L*L + heads] (bf16, groups = ceil(B /
+// per_group)); see swin_window_attn_bwd_blocks.
 extern "C" int swin_window_attn_bwd(const void* qkv, const void* dout, const void* rel_bias,
                                     const void* mask, const void* scale, void* dqkv, void* part,
                                     void* out, int B, int H, int W, int C, int heads, int ws,
-                                    int shift, int dt_code, void* stream) {
+                                    int shift, int per_group, int dt_code, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dt_code == 1)
-    return attn_bwd_dispatch<bf16>(qkv, dout, rel_bias, mask, scale, dqkv, part, out, B, H, W,
-                                   C, heads, ws, shift, st);
-  return attn_bwd_dispatch<float>(qkv, dout, rel_bias, mask, scale, dqkv, part, out, B, H, W, C,
-                                  heads, ws, shift, st);
+  if (dt_code == 1) {
+    switch (ws) {
+      case 16: return launch_attn_bwd_bf16<256>(ATTN_BWD_ARGS, per_group, st);
+      case 8: return launch_attn_bwd_bf16<64>(ATTN_BWD_ARGS, per_group, st);
+      case 4: return launch_attn_bwd_bf16<16>(ATTN_BWD_ARGS, per_group, st);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+  switch (ws) {
+    case 16: return launch_attn_bwd_f32<256>(ATTN_BWD_ARGS, st);
+    case 8: return launch_attn_bwd_f32<64>(ATTN_BWD_ARGS, st);
+    case 4: return launch_attn_bwd_f32<16>(ATTN_BWD_ARGS, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// Resident blocks of the bf16 attention backward at window size ws (with
+// or without the shift mask) on the current device, or a negated CUDA
+// error: the caller sizes the image groups, and so the scratch, to it.
+extern "C" int swin_window_attn_bwd_blocks(int ws, int masked) {
+  int blocks = 0, e = (int)cudaErrorInvalidValue;
+  switch (ws * 2 + (masked ? 1 : 0)) {
+    case 32: e = attn_bwd_tc_resident<256, false>(blocks); break;
+    case 33: e = attn_bwd_tc_resident<256, true>(blocks); break;
+    case 16: e = attn_bwd_tc_resident<64, false>(blocks); break;
+    case 17: e = attn_bwd_tc_resident<64, true>(blocks); break;
+    case 8: e = attn_bwd_tc_resident<16, false>(blocks); break;
+    case 9: e = attn_bwd_tc_resident<16, true>(blocks); break;
+  }
+  return e != 0 ? -e : blocks;
 }

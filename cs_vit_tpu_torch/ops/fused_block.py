@@ -59,7 +59,8 @@ _SIGNATURES = {
         "ln_residual_bwd": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, ctypes.c_float,
                             _I, _I, _I, _I, _P),
         "swin_window_attn_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                 _I, _P),
+                                 _I, _I, _P),
+        "swin_window_attn_bwd_blocks": (_I, _I),
     },
 }
 _libs: dict = {}
@@ -422,14 +423,44 @@ def gemm_wgrad_reference(a: torch.Tensor, dy: torch.Tensor) -> Tuple[torch.Tenso
     return a.float().t() @ dy.to(a.dtype).float(), dy.float().sum(0)
 
 
-def _wgrad_splits(M: int, K: int, N: int, tile_n: int, sms: int) -> Tuple[int, int]:
-    """(splits, rows per split) of the token rows: enough blocks for a few
-    on each of `sms` SMs, at least 256 rows a split, a multiple of 32 rows."""
-    tiles = -(-K // 64) * -(-N // tile_n)
-    splits = max(1, min(-(-4 * sms // tiles), M // 256))
+# bf16 gemm_wgrad (wgmma): output tiles of 128 x 128, 64 token rows a
+# stage, one block per SM; a split takes at least WGRAD_MIN_ROWS rows
+WGRAD_TILE, WGRAD_DEPTH, WGRAD_MIN_ROWS = 128, 64, 512
+
+
+def _wgrad_tiles(K: int, N: int) -> int:
+    """Output tiles of the bf16 gemm_wgrad kernel."""
+    return -(-K // WGRAD_TILE) * -(-N // WGRAD_TILE)
+
+
+def _wgrad_splits(M: int, K: int, N: int, sms: int, bf16: bool = True) -> Tuple[int, int]:
+    """(splits, rows per split) of the token rows of a weight grad.
+
+    bf16 (the wgmma kernel, one resident block per SM): no split where the
+    output tiles fill a quarter of the `sms` SMs or more (their partials
+    would cost more bytes than the idle SMs cost time); else as many splits
+    as one wave of `sms` blocks holds beside the tiles, each of at least
+    WGRAD_MIN_ROWS rows, a multiple of WGRAD_DEPTH rows (a split's stages
+    never reach the next split's rows). f32 (SIMT, 64 x 64 tiles): a few
+    blocks on each SM, at least 256 rows a split, a multiple of 32 rows.
+    """
+    if bf16:
+        tiles = _wgrad_tiles(K, N)
+        splits = 1 if 4 * tiles >= sms else max(1, min(sms // tiles, M // WGRAD_MIN_ROWS))
+        quantum = WGRAD_DEPTH
+    else:
+        tiles = -(-K // 64) * -(-N // 64)
+        splits, quantum = max(1, min(-(-4 * sms // tiles), M // 256)), 32
     rows = -(-M // splits)
-    rows = -(-rows // 32) * 32
+    rows = -(-rows // quantum) * quantum
     return -(-M // rows), rows
+
+
+def wgrad_partial_bytes(M: int, K: int, N: int, sms: int, bf16: bool = True) -> int:
+    """Device-memory bytes of one gemm_wgrad call's split partials, written
+    and read back (0 when the rows are not split)."""
+    splits, _ = _wgrad_splits(M, K, N, sms, bf16)
+    return 0 if splits == 1 else 2 * splits * (K * N + N) * 4
 
 
 def gemm_wgrad(a: torch.Tensor, dy: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -448,7 +479,9 @@ def gemm_wgrad(a: torch.Tensor, dy: torch.Tensor) -> Tuple[torch.Tensor, torch.T
     _require(dy.dtype == torch.float32 and dy.shape == (M, N), "dy must be f32 [M,N]")
     _require(a.is_contiguous() and dy.is_contiguous(), "gemm_wgrad needs contiguous operands")
     _require(N % 8 == 0 and K % 8 == 0, "gemm_wgrad needs K, N multiples of 8")
-    splits, rows = _wgrad_splits(M, K, N, 128 if dt == torch.bfloat16 else 64, _sm_count(a))
+    _require(dt != torch.bfloat16 or (a.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0),
+             "the bf16 gemm_wgrad kernel needs 16-byte aligned operands")
+    splits, rows = _wgrad_splits(M, K, N, _sm_count(a), dt == torch.bfloat16)
     out = torch.empty(K * N + N, dtype=torch.float32, device=a.device)
     part = out if splits == 1 else torch.empty((splits, K * N + N), dtype=torch.float32,
                                                 device=a.device)
@@ -595,6 +628,41 @@ def window_attention_bwd_reference(
     return d, drb, dscale
 
 
+def _attn_bwd_groups(resident: int, heads: int, nW: int, B: int) -> Tuple[int, int]:
+    """(images per group, groups) of the bf16 attention backward: one block
+    per (head, window position, group of images); enough groups for the
+    `resident` blocks the card holds at once, and as few as that allows (the
+    block's d rel_bias slab and its launch cost are per group), as
+    ``csrc/window_attn_core.cuh:images_per_group`` plans the forward kernels'
+    groups. The groups cover the B images in order, the last one possibly
+    short."""
+    groups = min(B, max(1, resident // (heads * nW)))
+    per_group = -(-B // groups)
+    return per_group, -(-B // per_group)
+
+
+def attn_bwd_scratch_floats(B: int, nW: int, heads: int, L: int, groups: Optional[int]) -> int:
+    """f32 elements of the attention backward's d rel_bias / d logit_scale
+    partials: one [heads*L*L + heads] slot per window of every image (f32
+    kernel, groups None), or per window position and image group (bf16)."""
+    return (B * nW if groups is None else nW * groups) * (heads * L * L + heads)
+
+
+_resident: dict = {}
+
+
+def _attn_bwd_resident(t: torch.Tensor, ws: int, masked: bool) -> int:
+    """Resident blocks of the bf16 attention backward on t's card, asked of
+    the library once per device, window size and mask."""
+    key = (t.device.index, ws, masked)
+    if key not in _resident:
+        with torch.cuda.device(t.device):
+            n = _lib("fused_block_bwd").swin_window_attn_bwd_blocks(ws, int(masked))
+        _check_launch("swin_window_attn_bwd (occupancy)", -n if n < 0 else 0)
+        _resident[key] = n
+    return _resident[key]
+
+
 def window_attention_bwd(
     qkv: torch.Tensor, dout: torch.Tensor, rel_bias: torch.Tensor, logit_scale: torch.Tensor,
     mask: Optional[torch.Tensor] = None, *, window_size: int, num_heads: int, shift: int = 0,
@@ -625,15 +693,22 @@ def window_attention_bwd(
         _require(mask.shape == (nW, L, L) and mask.dtype == dt,
                  "mask must be [nW, L, L] in qkv's dtype")
     _require(all(t.is_contiguous() for t in tensors), "window_attention_bwd needs contiguous operands")
+    _require(dt != torch.bfloat16 or all(t.data_ptr() % 16 == 0 for t in tensors),
+             "the bf16 window_attention_bwd kernel needs 16-byte aligned operands")
+    per_group, groups = 0, None
+    if dt == torch.bfloat16:
+        per_group, groups = _attn_bwd_groups(_attn_bwd_resident(qkv, ws, mask is not None),
+                                             num_heads, nW, B)
     per_window = num_heads * L * L + num_heads
     dqkv = torch.empty((B, H, W, C3), dtype=torch.float32, device=qkv.device)
-    part = torch.empty((B * nW, per_window), dtype=torch.float32, device=qkv.device)
+    part = torch.empty(attn_bwd_scratch_floats(B, nW, num_heads, L, groups), dtype=torch.float32,
+                       device=qkv.device)
     out = torch.empty(per_window, dtype=torch.float32, device=qkv.device)
     rc = _lib("fused_block_bwd").swin_window_attn_bwd(
         qkv.data_ptr(), dout.data_ptr(), rel_bias.data_ptr(),
         None if mask is None else mask.data_ptr(), logit_scale.data_ptr(), dqkv.data_ptr(),
-        part.data_ptr(), out.data_ptr(), B, H, W, C, num_heads, ws, shift, _DT_CODE[dt],
-        _stream(qkv),
+        part.data_ptr(), out.data_ptr(), B, H, W, C, num_heads, ws, shift, per_group,
+        _DT_CODE[dt], _stream(qkv),
     )
     _check_launch("swin_window_attn_bwd", rc)
     window_attention_bwd.launches += 1

@@ -9,9 +9,11 @@ test whether a card is present and skips otherwise. Run them on the card:
 (``--noconftest``: tests/conftest.py sets up JAX, which the card's machine
 need not have.) The per-kernel cases run ``chip_smoke.kernel_checks``,
 ``chip_smoke.bwd_kernel_checks``, ``chip_smoke.window_attention_checks`` and
-``chip_smoke.attention_checks``, the checks ``chip_smoke.py`` makes, at the
-Swin-B-256 block geometries (the two attention forward kernels also at the
-ws 4 geometries of ``chip_smoke.SMALL_GEOMS``) and the batches of
+``chip_smoke.attention_checks`` and ``chip_smoke.bwd_edge_checks``, the checks
+``chip_smoke.py`` makes, at the Swin-B-256 block geometries (the two attention
+forward kernels and the attention backward also at the ws 4 geometries of
+``chip_smoke.SMALL_GEOMS`` and with a query row's whole bias at -100;
+gemm_wgrad also at ``chip_smoke.WGRAD_EDGE_SHAPES``) and the batches of
 ``chip_smoke.CHECK_BATCHES`` (so also marked ``slow``) with its stated
 tolerances (``chip_smoke.TOL``); the overlap probe's case runs
 ``chip_smoke.check_probe`` at the probe's own shapes (``chip_smoke.PROBE_TOL``).
@@ -73,6 +75,33 @@ def test_backward_kernels_match_plain_versions(geom, dname):
                           "window_attention_bwd": 1 + 1, "FusedSwinBlock": 1,
                           "fused_swin_block": 1, "gemm_bias_act": 4 + 1, "ln_residual": 2,
                           "window_attention": 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.slow
+@pytest.mark.parametrize("dname", ["bf16", "f32"])
+def test_backward_kernels_beyond_the_block_geometries(dname):
+    """The attention backward at ws 4 (L=16), every batch, and with a query
+    row's whole bias at -100; gemm_wgrad at M off its 64-row stage and K, N
+    8 more than a multiple of its 128-wide tile."""
+    _need_card()
+    fb.reset_launch_counts()
+    results = chip_smoke.bwd_edge_checks(torch, fb, dname)
+    bad = [r for r in results if not r[3] <= r[4]]
+    assert not bad, bad
+    counts = fb.launch_counts()
+    n_attn = len(chip_smoke.SMALL_GEOMS) * len(chip_smoke.CHECK_BATCHES) + len(
+        [g for g in chip_smoke.GEOMS + chip_smoke.SMALL_GEOMS
+         if (g[0], g[5]) in chip_smoke.MASKED_ROW_GEOMS])
+    assert counts["window_attention_bwd"] == n_attn
+    assert counts["gemm_wgrad"] == len(chip_smoke.WGRAD_EDGE_SHAPES)
+
+
+@pytest.mark.gpu
+@pytest.mark.slow
+def test_backward_kernels_are_bit_identical_over_two_launches():
+    _need_card()
+    assert chip_smoke.check_bit_identical(torch, fb) == 5 * len(chip_smoke.GEOMS)
 
 
 @pytest.mark.gpu
