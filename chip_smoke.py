@@ -12,7 +12,8 @@ order, failing (non-zero exit, no result line) at the first phase that fails:
 2. builds the kernels (all four sources at once) and prints the build time
    and the compiler's register/spill report; fails if a tensor-core kernel
    (the window-attention ``*_tc_kernel``s, forward and backward, and the
-   ``wgmma`` weight-grad GEMM) spills or is missing from the report;
+   three ``wgmma`` GEMMs at each tile width) spills or is missing from the
+   report;
 3. holds each forward and backward kernel of the whole-block path, the whole
    ``fused_swin_block``, the whole block backward (``FusedSwinBlock``) and
    the attention-only window kernel (``fused_window_attention``) against its
@@ -21,8 +22,10 @@ order, failing (non-zero exit, no result line) at the first phase that fails:
    and f32 (the attention-only kernel also at the 3, 24 and 40 images of the
    temporal paths); the two window-attention forward kernels also at a ws 4
    (L=16) geometry and with one query row's whole bias at -100, and so is
-   the attention backward; ``gemm_wgrad`` also at WGRAD_EDGE_SHAPES; the
-   bf16 ``gemm_wgrad`` and attention backward launched twice must give
+   the attention backward; ``gemm_wgrad`` also at WGRAD_EDGE_SHAPES,
+   ``gemm_bias_act`` and ``gemm_dgrad`` at GEMM_EDGE_SHAPES with every
+   epilogue and output dtype; the bf16 ``gemm_wgrad``, attention backward,
+   ``gemm_bias_act`` and ``gemm_dgrad`` launched twice must give
    bit-identical outputs; a CUDA ``fused_window_attention`` under autograd
    must raise;
 4. serves the flagship model (Swin-B-256 Poser, img 256, bf16, synthetic
@@ -51,7 +54,7 @@ order, failing (non-zero exit, no result line) at the first phase that fails:
 9. times every kernel at its path's shapes (batch 8) beside its plain
    version, one library call and its bound (CUDA events around calls as the
    host issues them, ``cuda_ms``), the two window-attention forward
-   kernels, the attention backward, ``gemm_wgrad`` and their library calls
+   kernels, the attention backward, the three GEMMs and their library calls
    also queued behind a sleep kernel (``queued_ms``: the card's time,
    flagged where the host still fell behind), the attention backward's
    scratch bytes per call and ``gemm_wgrad``'s split-partial bytes per step,
@@ -100,6 +103,12 @@ MASKED_ROW_GEOMS = ((0, 8), (9, 2))
 # gemm_wgrad shapes beside the blocks' (M, K, N): M not a multiple of the
 # kernel's 64-row stage, K and N 8 more than a multiple of its 128-wide tile
 WGRAD_EDGE_SHAPES = ((1000, 136, 264), (4104, 520, 136), (33000, 136, 1032))
+# gemm_bias_act (A [M,K] . W [K,N]) and gemm_dgrad (dY [M,N] . W[K,N]^T)
+# shapes beside the blocks' (M, K, N): M not a multiple of the kernels' 64-row
+# tile, K and N 8 more than a multiple of 64 or 128 (so that both tile widths
+# of fused_block._gemm_plan run in each kernel), at every epilogue and
+# output dtype
+GEMM_EDGE_SHAPES = ((1000, 136, 264), (4104, 1032, 72), (33000, 136, 1032))
 KERNEL_SOURCE = "cs_vit_tpu_torch/ops/csrc/fused_block.cu"
 REPLACES = "cs_vit_tpu/ops/fused_block.py:738"
 # kernel vs plain: max |kernel - plain| / max |plain|. f32: only the order of
@@ -476,11 +485,47 @@ def bwd_edge_checks(torch, fb, dname):
             for name, what, got, want in pairs]
 
 
+def gemm_edge_checks(torch, fb, dname):
+    """The two GEMMs beyond the block geometries: gemm_bias_act and
+    gemm_dgrad at GEMM_EDGE_SHAPES with every activation or epilogue, aux
+    dtype and output dtype the dtype admits: [(kernel, what, max_abs, rel,
+    tol)]."""
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dname]
+    f32 = torch.float32
+    out_dtypes = (dtype, f32) if dtype != f32 else (f32,)
+    aux_dtypes = (dtype, f32) if dtype != f32 else (f32,)
+    gen = torch.Generator().manual_seed(37)
+
+    def n(*shape, dt=f32):
+        return torch.randn(*shape, generator=gen).to(DEV, dt)
+
+    pairs = []
+    for M, K, N in GEMM_EDGE_SHAPES:
+        a, w, b = n(M, K, dt=dtype), n(K, N, dt=dtype) * K ** -0.5, n(N, dt=dtype)
+        for act in ("none", "gelu"):
+            for odt in out_dtypes:
+                pairs.append(("gemm_bias_act", f"M{M} K{K} N{N} {act} out {odt}",
+                              fb.gemm_bias_act(a, w, b, act, odt),
+                              fb.gemm_bias_act_reference(a, w, b, act, odt)))
+        dy = n(M, N)
+        cases = [("gelu", n(M, K, dt=dtype))] + [("add", n(M, K, dt=adt)) for adt in aux_dtypes]
+        for epi, aux in cases + [("none", None)]:
+            for odt in out_dtypes:
+                what = f"M{M} K{K} N{N} {epi}" + ("" if aux is None else f" aux {aux.dtype}")
+                pairs.append(("gemm_dgrad", f"{what} out {odt}",
+                              fb.gemm_dgrad(dy, w, aux, epi, odt),
+                              fb.gemm_dgrad_reference(dy, w, aux, epi, odt)))
+    sync(torch)
+    return [(name, what, *rel_err(got, want), TOL[dname]["kernel"])
+            for name, what, got, want in pairs]
+
+
 def check_bit_identical(torch, fb, B=8):
-    """The bf16 gemm_wgrad and swin_window_attn_bwd launched twice on the
-    same inputs at every block geometry (wgrad at its four shapes) give
-    bit-identical outputs: every cross-block sum runs in a fixed order.
-    Returns the number of comparisons."""
+    """The bf16 gemm_wgrad, swin_window_attn_bwd, gemm_bias_act and
+    gemm_dgrad launched twice on the same inputs at every block geometry
+    (each GEMM at the block's four shapes) give bit-identical outputs: every
+    cross-block sum runs in a fixed order, and the two GEMMs sum each output
+    in one block. Returns the number of comparisons."""
     bf = torch.bfloat16
     n = 0
     for stage, res, C, heads, ws, shift, _ in GEOMS:
@@ -492,6 +537,11 @@ def check_bit_identical(torch, fb, B=8):
             a = torch.randn(M, K, generator=gen).to(DEV, bf)
             dy = torch.randn(M, N, generator=gen).to(DEV)
             calls.append((f"gemm_wgrad K{K} N{N}", lambda a=a, dy=dy: fb.gemm_wgrad(a, dy)))
+            w = torch.randn(K, N, generator=gen).to(DEV, bf)
+            calls.append((f"gemm_bias_act K{K} N{N}", lambda a=a, w=w: (
+                fb.gemm_bias_act(a, w, w[0].contiguous(), "gelu"),)))
+            calls.append((f"gemm_dgrad K{K} N{N}", lambda a=a, dy=dy, w=w: (
+                fb.gemm_dgrad(dy, w, a, "add", torch.float32),)))
         qkv = torch.randn(B, res, res, 3 * C, generator=gen).to(DEV, bf)
         dout = torch.randn(B, res, res, C, generator=gen).to(DEV, bf)
         kw = dict(window_size=ws, num_heads=heads, shift=shift)
@@ -504,8 +554,8 @@ def check_bit_identical(torch, fb, B=8):
             if not all(torch.equal(x, y) for x, y in zip(first, second)):
                 fail(f"{what} at stage{stage} shift{shift} b{B} differs between two launches")
             n += 1
-    print(f"check: gemm_wgrad and swin_window_attn_bwd bit-identical over two launches "
-          f"({n} comparisons, bf16 b{B})")
+    print(f"check: gemm_wgrad, swin_window_attn_bwd, gemm_bias_act and gemm_dgrad "
+          f"bit-identical over two launches ({n} comparisons, bf16 b{B})")
     return n
 
 
@@ -593,7 +643,8 @@ def check_kernels(torch, fb, wa):
                     worst[name] = max(worst[name], err)
             print(f"check {where} worst rel/tol: " + ", ".join(
                 f"{k} {r:.2e}/{t:.0e}" for k, (r, t) in by_kernel.items()))
-        for name, what, err, rel, tol in bwd_edge_checks(torch, fb, dname):
+        for name, what, err, rel, tol in (bwd_edge_checks(torch, fb, dname)
+                                          + gemm_edge_checks(torch, fb, dname)):
             n_checks += 1
             ok = rel <= tol
             print(f"check {dname} {name} {what}: max_abs={err:.3e} rel={rel:.3e} tol={tol:.1e} "
@@ -607,15 +658,19 @@ def check_kernels(torch, fb, wa):
 
 
 # the tensor-core instantiations of each library: (kernel, L, variant); the
-# wgmma weight-grad GEMM has no L (0)
+# wgmma GEMMs have no L (0): gemm_bias_act's and gemm_dgrad's variants are
+# their output tiles (rows x columns)
+GEMM_TILE_NAMES = ("128x128", "128x64", "64x64")
 TC_KERNELS = {
     "fused_block": {("window_attn_tc_kernel", L, v)
-                    for L in (256, 64, 16) for v in ("masked", "unmasked")},
+                    for L in (256, 64, 16) for v in ("masked", "unmasked")}
+                   | {("gemm_bias_act_wgmma_kernel", 0, t) for t in GEMM_TILE_NAMES},
     "window_attention": {("fused_window_attn_tc_kernel", L, v)
                          for L in (256, 64, 16) for v in ("f32 bias", "bf16 bias")},
     "fused_block_bwd": {("window_attn_bwd_tc_kernel", L, v)
                         for L in (256, 64, 16) for v in ("masked", "unmasked")}
-                       | {("wgrad_wgmma_kernel", 0, "bf16")},
+                       | {("wgrad_wgmma_kernel", 0, "bf16")}
+                       | {("dgrad_wgmma_kernel", 0, t) for t in GEMM_TILE_NAMES},
 }
 
 
@@ -640,9 +695,9 @@ def ptxas_entries(log: str) -> dict:
 
 def check_tc_spills(lib: str, log: str) -> None:
     """The tensor-core kernels (the window-attention ``*_tc_kernel``s, which
-    keep their score blocks in registers, and the wgmma weight-grad GEMM,
-    which keeps its 64 accumulators there): fail on any spill, and unless the
-    report holds every instantiation of TC_KERNELS[lib]."""
+    keep their score blocks in registers, and the three wgmma GEMMs, which
+    keep their accumulators there): fail on any spill, and unless the report
+    holds every instantiation of TC_KERNELS[lib]."""
     seen = set()
     for name, (regs, stores, loads) in ptxas_entries(log).items():
         m = re.search(r"\d((?:fused_)?window_attn(?:_bwd)?_tc_kernel)ILi(\d+)E"
@@ -654,6 +709,9 @@ def check_tc_spills(lib: str, log: str) -> None:
             what = f"{m.group(1)}<L={m.group(2)}, {variant}>"
         elif re.search(r"\dwgrad_wgmma_kernel", name):
             key, what = ("wgrad_wgmma_kernel", 0, "bf16"), "wgrad_wgmma_kernel"
+        elif m := re.search(r"\d((?:gemm_bias_act|dgrad)_wgmma_kernel)ILi(\d+)ELi(\d+)E", name):
+            key = (m.group(1), 0, f"{m.group(2)}x{m.group(3)}")
+            what = f"{m.group(1)}<{key[2]}>"
         else:
             continue
         seen.add(key)
@@ -719,7 +777,9 @@ def queued(torch, r, n_blocks, kernel, library, what):
 
 
 def time_kernels(torch, fb, F, B=8):
-    """Phase 9: per-forward totals at batch B, bf16, summed over the 24 blocks."""
+    """Phase 9: per-forward totals at batch B, bf16, summed over the 24 blocks;
+    gemm_bias_act and swin_window_attn_fwd and their library calls also
+    queued (queued_ms)."""
     bf = torch.bfloat16
     tot = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes_s": 0.0, "flops_s": 0.0,
                "bound_ms": 0.0} for k in ("gemm_bias_act", "ln_residual", "swin_window_attn_fwd")}
@@ -737,7 +797,8 @@ def time_kernels(torch, fb, F, B=8):
         r["flops_s"] += n_blocks * tf
         r["bound_ms"] += n_blocks * max(tb, tf)
 
-    tot["swin_window_attn_fwd"].update(QUEUED_KEYS)
+    for k in ("gemm_bias_act", "swin_window_attn_fwd"):
+        tot[k].update(QUEUED_KEYS)
     for stage, res, C, heads, ws, shift, n_blocks in GEOMS:
         t = block_inputs(torch, B, res, C, heads, ws, shift, bf, seed=100 + stage)
         M, L, Ch = B * res * res, ws * ws, 4 * C
@@ -753,6 +814,10 @@ def time_kernels(torch, fb, F, B=8):
             ms = cuda_ms(torch, lambda: fb.gemm_bias_act(a, w, b, act=act, out_dtype=odt))
             plain = cuda_ms(torch, lambda: fb.gemm_bias_act_reference(a, w, b, act=act, out_dtype=odt))
             lib = cuda_ms(torch, lambda: torch.addmm(b, a, w))
+            queued(torch, tot["gemm_bias_act"], n_blocks,
+                   lambda: fb.gemm_bias_act(a, w, b, act=act, out_dtype=odt),
+                   lambda: torch.addmm(b, a, w),
+                   f"stage{stage} shift{shift} gemm_bias_act M{M} K{K} N{N} {act}")
             nbytes = (M * K + K * N + N) * 2 + M * N * (4 if odt == torch.float32 else 2)
             add("gemm_bias_act", n_blocks, ms, plain, lib, nbytes, 2 * M * N * K,
                 PEAK_FLOPS["bf16"], f"M{M} K{K} N{N} {act}")
@@ -1397,14 +1462,16 @@ def time_bwd_kernels(torch, fb, F, B=8, iters=10):
     """Phase 9: the backward kernels at a bf16 b8 step's shapes, per step
     (summed over the 24 blocks), beside their plain versions, one library call
     each (yardsticks: torch.matmul, autograd of F.layer_norm and of SDPA with
-    a float mask) and their bounds; gemm_wgrad and swin_window_attn_bwd and
-    their library calls also queued (queued_ms). Prints the attention
+    a float mask) and their bounds; gemm_dgrad, gemm_wgrad and
+    swin_window_attn_bwd and their library calls also queued (queued_ms;
+    gemm_dgrad's torch.matmul is handed dY already in bf16, so its byte
+    floor is lower than the kernel's, which reads f32 dY). Prints the attention
     backward's scratch bytes per call and gemm_wgrad's split-partial bytes."""
     bf, f32 = torch.bfloat16, torch.float32
     names = ("gemm_dgrad", "gemm_wgrad", "ln_residual_bwd", "swin_window_attn_bwd")
     tot = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes_s": 0.0, "flops_s": 0.0,
                "bound_ms": 0.0} for k in names}
-    for k in ("gemm_wgrad", "swin_window_attn_bwd"):
+    for k in ("gemm_dgrad", "gemm_wgrad", "swin_window_attn_bwd"):
         tot[k].update(QUEUED_KEYS)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     partial_bytes = 0
@@ -1474,6 +1541,9 @@ def time_bwd_kernels(torch, fb, F, B=8, iters=10):
                 lambda: fb.gemm_dgrad_reference(dy, w, aux, epi, odt),
                 lambda: torch.matmul(dyb, w.t()),
                 nbytes, 2 * M * N * K, PEAK_FLOPS["bf16"], f"{what} M{M} K{K} N{N}")
+            queued(torch, tot["gemm_dgrad"], n_blocks, lambda: fb.gemm_dgrad(dy, w, aux, epi, odt),
+                   lambda: torch.matmul(dyb, w.t()),
+                   f"stage{stage} shift{shift} gemm_dgrad {what} M{M} K{K} N{N}")
         # attention backward
         qkv = n(B, res, res, 3 * C, dt=bf)
         dout = n(B, res, res, C, dt=bf)

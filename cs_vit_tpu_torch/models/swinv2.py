@@ -34,6 +34,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import math
+import weakref
 from typing import Optional, Tuple
 
 import numpy as np
@@ -86,6 +87,14 @@ def swinv2_base_256(window_size: int = 16, **kw) -> SwinV2Config:
         embed_dim=128, depths=(2, 2, 18, 2), num_heads=(4, 8, 16, 32),
         window_size=window_size, **kw,
     )
+
+
+def _holds(key, dt: torch.dtype, tensors) -> bool:
+    """Whether a fused-operand cache key was made from these very tensors at
+    their present versions, for compute dtype `dt`."""
+    key_dt, refs = key
+    return key_dt == dt and len(refs) == len(tensors) and all(
+        r() is t and v == t._version for (r, v), t in zip(refs, tensors))
 
 
 def _compute_window_shift(
@@ -329,16 +338,18 @@ class SwinV2Block(nn.Module):
 
     def _cached_fused_operands(self, dt: torch.dtype) -> dict:
         """:meth:`_fused_operands`, built once per set of weights when no
-        gradient is recorded (serving). The cache key holds each parameter's
-        and buffer's storage and version counter, so moving, casting,
-        loading or editing the weights in place rebuilds it."""
+        gradient is recorded (serving). The cache key holds a weak reference
+        to each parameter and buffer with its version counter: a new tensor
+        (a train step's fresh copy, even one on a recycled address), a
+        moved, cast or loaded weight, or an in-place edit rebuilds it."""
         if torch.is_grad_enabled():
             return self._fused_operands(dt)
-        key = (dt,) + tuple(
-            (t.data_ptr(), t._version) for m in self._own_modules
-            for t in itertools.chain(m._parameters.values(), m._buffers.values()) if t is not None
-        )
-        if self._fused_cache is None or self._fused_cache[0] != key:
+        tensors = [t for m in self._own_modules
+                   for t in itertools.chain(m._parameters.values(), m._buffers.values())
+                   if t is not None]
+        cache = self._fused_cache
+        if cache is None or not _holds(cache[0], dt, tensors):
+            key = (dt, tuple((weakref.ref(t), t._version) for t in tensors))
             self._fused_cache = (key, self._fused_operands(dt))
         return self._fused_cache[1]
 

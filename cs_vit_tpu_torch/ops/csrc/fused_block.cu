@@ -23,11 +23,12 @@
 // product, softmax in f32 and p rounded to the compute dtype before p.v.
 //
 // What bounds each kernel on the H100, and what the design does about it:
-//  * gemm_bias_act: operations. 24*C^2 of the 24*C^2 + 4*L*C FLOPs per token
-//    are GEMMs. bf16 tiles of 64x128x32 go through the tensor cores (WMMA,
-//    mma.sync underneath) from a two-stage cp.async ring; bias and GELU are
-//    applied in the epilogue so no extra pass reads the product. No wgmma/TMA
-//    yet: that is the next step for speed.
+//  * gemm_bias_act: bytes at most Swin-B shapes (24*C^2 of the 24*C^2 +
+//    4*L*C FLOPs per token are GEMMs, but C <= 1024 gives them little reuse).
+//    bf16: wgmma (gemm_core.cuh) on output tiles of 128 x 128, 128 x 64 or
+//    64 x 64, A and W by TMA into an mbarrier ring kept full by a producer
+//    warp; bias and GELU applied in the epilogue straight from the accumulators,
+//    so no extra pass reads the product. f32 (the check path): SIMT FMA.
 //  * swin_window_attn_fwd: bytes at the bf16 tensor-core peak (at L=256,
 //    4*L*hd = 32768 FLOPs per query and head against 4*hd*2 = 256 bytes of
 //    q, k, v and o: 128 FLOP/byte, under the H100's ~295). bf16 (the timed
@@ -56,106 +57,180 @@
 // nothing and does not synchronise.
 
 #include <limits.h>
-#include <mma.h>
 
 #include "common.cuh"
+#include "gemm_core.cuh"
 #include "window_attn_core.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------------------
-// gemm_bias_act: out[M,N] = act(A[M,K] . W[K,N] + bias[N])
+// gemm_bias_act, bf16: out[M,N] = act(A[M,K] . W[K,N] + bias[N]) on wgmma
+// (gemm_core.cuh). Replaces the four products of the TPU kernel's
+// _block_kernel (cs_vit_tpu/ops/fused_block.py:_pallas_forward, :738), which
+// hold every weight in VMEM.
+// Output tile BM x BN (128 x 128, 128 x 64 or 64 x 64; fused_block.py:
+// _gemm_plan picks the largest whose tiles fill half of the SMs), one
+// consumer warpgroup per 64 rows, depth 64 a stage, a ring of up to 8
+// stages sized to let two blocks share an SM (fewer where K is shorter).
+// One producer warp (the block's last) keeps the ring full by TMA: the A rows as a K-major 128-byte-
+// swizzled tile (box {64 of K, BM rows}), the W rows as BN / 64 MN-major
+// swizzled atoms (boxes {64 of N, 64 rows of K}); both land as wgmma's
+// operands are read, and out-of-bounds rows and columns read as 0, so
+// ragged M, N and K need no masks in the mainloop. Each consumer warpgroup
+// runs 4 wgmma m64nBNk16 a stage with one group in flight and hands a
+// stage back once the products that read it are done. The epilogue stages
+// the f32 accumulators in shared memory (the ring, free by then) and
+// writes the tile in rows of 4-column chunks, a warp's stores contiguous
+// (rather than 8 rows of 8 or 4 bytes a warp instruction in the
+// accumulators' own pairs): bias in f32, the optional exact-erf GELU, one
+// rounding to the output dtype.
+// The grid walks the column tiles of one band of BM rows before the next
+// band, so the blocks that share an A band run together and re-read it
+// from L2.
+// What bounds it on the H100: bytes at most Swin-B shapes (2 M K + 2 K N +
+// 2 or 4 M N bytes against 2 M N K FLOPs; operations only for the qkv and
+// MLP-1 products of stages 2-3): 0.42 ms a b8 forward, summed per call as
+// chip_smoke.py counts it. So the design keeps the A and W tiles in flight
+// by TMA, reads A from device memory once per band (then from L2), and
+// writes the output once, in whole sectors. At those shapes the operands'
+// re-reads from L2 (each column of tiles reads all of A, each row all of W)
+// set the pace, more than the tensor cores do: a larger tile reads less.
 // ---------------------------------------------------------------------------
 
-constexpr int GB_M = 64, GB_N = 128, GB_K = 32, G_THREADS = 128;
-constexpr int A_LD = GB_K + 8;  // padded rows: 80 B, keeps WMMA pointers 32 B aligned
-constexpr int B_LD = GB_N + 8;  // 272 B
+template <int BM, int BN>
+struct FwdGemm {
+  static constexpr int WG = BM / 64, CONSUMERS = 128 * WG, THREADS = CONSUMERS + 32, BK = 64;
+  static constexpr int A_BYTES = BM * GC_ATOM_ROW_BYTES;       // BM rows x 64 of K
+  static constexpr int W_ATOM_BYTES = BK * GC_ATOM_ROW_BYTES;  // 64 of K x 64 of N
+  static constexpr int STAGE_BYTES = A_BYTES + (BN / 64) * W_ATOM_BYTES;
+  static constexpr int TILE_BYTES = BM * acc_pitch<BN>() * 4;
+};
 
-// bf16 operands on the tensor cores; K and N must be multiples of 8 so that
-// every 16-byte chunk is wholly inside or wholly outside the matrix.
-template <int ACT, typename OutT>
-__global__ void __launch_bounds__(G_THREADS)
-gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
-                 const bf16* __restrict__ bias, OutT* __restrict__ out,
-                 int M, int N, int K) {
-  namespace nw = nvcuda::wmma;
-  __shared__ __align__(128) bf16 As[2][GB_M * A_LD];
-  __shared__ __align__(128) bf16 Bs[2][GB_K * B_LD];
-  __shared__ __align__(128) float Cs[G_THREADS / 32][16 * 16];
+template <int BM, int BN>
+__global__ void __launch_bounds__(FwdGemm<BM, BN>::THREADS, 1)
+gemm_bias_act_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
+                           const __grid_constant__ CUtensorMap tm_w,
+                           const bf16* __restrict__ bias, void* __restrict__ out, int M, int N,
+                           int K, int stages, int act, int out_f32) {
+  using S_ = FwdGemm<BM, BN>;
+  constexpr int BK = S_::BK, STAGE_BYTES = S_::STAGE_BYTES, CONSUMERS = S_::CONSUMERS;
+  extern __shared__ unsigned char gb_raw[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(gb_raw);
+  uint64_t* empty = full + GC_MAX_STAGES;
+  unsigned char* ring = gc_ring(gb_raw);
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int m0 = blockIdx.y * GB_M, n0 = blockIdx.x * GB_N;
-  const int wr = warp >> 1, wc = warp & 1;  // 2x2 warps, 32x64 each
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int iters = (K + BK - 1) / BK;
 
-  auto load_tile = [&](int buf, int k0) {
-    for (int c = tid; c < GB_M * GB_K / 8; c += G_THREADS) {
-      const int r = c >> 2, kc = (c & 3) * 8;
-      const int gm = m0 + r, gk = k0 + kc;
-      const bool ok = gm < M && gk < K;
-      cp_async16(&As[buf][r * A_LD + kc], ok ? A + (size_t)gm * K + gk : A, ok);
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS);
     }
-    for (int c = tid; c < GB_K * GB_N / 8; c += G_THREADS) {
-      const int r = c >> 4, nc = (c & 15) * 8;
-      const int gk = k0 + r, gn = n0 + nc;
-      const bool ok = gk < K && gn < N;
-      cp_async16(&Bs[buf][r * B_LD + nc], ok ? W + (size_t)gk * N + gn : W, ok);
-    }
-    cp_async_commit();
-  };
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-  nw::fragment<nw::accumulator, 16, 16, 16, float> acc[2][4];
+  if (tid >= CONSUMERS) {  // producer warp: one thread issues every load
+    if (tid == CONSUMERS) {
+      for (int it = 0, s = 0, ph = 0; it < iters; ++it) {
+        if (it >= stages) mbar_wait(&empty[s], ph ^ 1);
+        unsigned char* st = ring + s * STAGE_BYTES;
+        const int k = it * BK;
+        mbar_arrive_expect_tx(&full[s], STAGE_BYTES);
+        tma_load_2d(st, &tm_a, &full[s], k, m0);
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) nw::fill_fragment(acc[i][j], 0.0f);
-
-  const int nk = (K + GB_K - 1) / GB_K;
-  load_tile(0, 0);
-  for (int kt = 0; kt < nk; ++kt) {
-    const int buf = kt & 1;
-    if (kt + 1 < nk) {
-      load_tile(buf ^ 1, (kt + 1) * GB_K);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+        for (int a = 0; a < BN / 64; ++a)
+          tma_load_2d(st + S_::A_BYTES + a * S_::W_ATOM_BYTES, &tm_w, &full[s], n0 + 64 * a, k);
+        if (++s == stages) s = 0, ph ^= 1;
+      }
     }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < GB_K; kk += 16) {
-      nw::fragment<nw::matrix_a, 16, 16, 16, bf16, nw::row_major> af[2];
-      nw::fragment<nw::matrix_b, 16, 16, 16, bf16, nw::row_major> bfr[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        nw::load_matrix_sync(af[i], &As[buf][(wr * 32 + i * 16) * A_LD + kk], A_LD);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        nw::load_matrix_sync(bfr[j], &Bs[buf][kk * B_LD + wc * 64 + j * 16], B_LD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) nw::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
-    }
-    __syncthreads();
+    return;
   }
 
-  float* cs = Cs[warp];
+  const int wg = tid >> 7;  // this warpgroup's 64 rows of the tile
+  float acc[BN / 2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+  for (int it = 0, s = 0, ph = 0, prev = 0; it < iters; ++it) {
+    mbar_wait(&full[s], ph);
+    const uint32_t st = gc_smem(ring + s * STAGE_BYTES);
+    const uint32_t a_addr = st + wg * 64 * GC_ATOM_ROW_BYTES, w_addr = st + S_::A_BYTES;
+    wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      nw::store_matrix_sync(cs, acc[i][j], 16, nw::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int gm = m0 + wr * 32 + i * 16 + (e >> 4);
-        const int gn = n0 + wc * 64 + j * 16 + (e & 15);
-        if (gm < M && gn < N) {
-          float v = cs[e] + to_f(bias[gn]);
-          if (ACT == 1) v = gelu_erf(v);
-          out[(size_t)gm * N + gn] = from_f<OutT>(v);
-        }
-      }
-      __syncwarp();
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_ss<BN, 0, 1>(acc, wgmma_desc_k_sw128(a_addr + kk * 32),
+                         wgmma_desc_mn_sw128(w_addr + kk * 16 * GC_ATOM_ROW_BYTES,
+                                             S_::W_ATOM_BYTES));
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous stage's products are done: hand it back
+    if (it > 0) mbar_arrive(&empty[prev]);
+    prev = s;
+    if (++s == stages) s = 0, ph ^= 1;
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) wgmma_keep(acc[i]);
+
+  // epilogue: the accumulators through shared memory (the ring is free once
+  // every warpgroup's last products are done), then out in rows of 4-column
+  // chunks, each warp's stores contiguous; a thread keeps one chunk column,
+  // so it reads its 4 bias values once
+  constexpr int CH = BN / 4, RSTEP = CONSUMERS / CH, P = acc_pitch<BN>();
+  float* tile = reinterpret_cast<float*>(ring);
+  named_barrier(1, CONSUMERS);
+  stage_acc<BN>(tile + wg * 64 * P, acc, tid & 127);
+  named_barrier(1, CONSUMERS);
+  const int cq = tid % CH, c = n0 + 4 * cq;
+  if (c >= N) return;  // N is a multiple of 8: a chunk is in or out whole
+  const float4 b = load4(bias + c);
+#pragma unroll
+  for (int i = 0; i < BM / RSTEP; ++i) {
+    const int rt = tid / CH + RSTEP * i, r = m0 + rt;
+    if (r >= M) break;
+    float4 v = *reinterpret_cast<const float4*>(tile + rt * P + 4 * cq);
+    v.x += b.x;
+    v.y += b.y;
+    v.z += b.z;
+    v.w += b.w;
+    if (act) {
+      v.x = gelu_erf(v.x);
+      v.y = gelu_erf(v.y);
+      v.z = gelu_erf(v.z);
+      v.w = gelu_erf(v.w);
     }
+    const size_t o = (size_t)r * N + c;
+    if (out_f32) store4(static_cast<float*>(out) + o, v);
+    else store4(static_cast<bf16*>(out) + o, v);
+  }
+}
+
+template <int BM, int BN>
+int launch_gemm_bias_act_bf16(const bf16* A, const bf16* W, const bf16* bias, void* out, int M,
+                              int N, int K, int stages, int act, int out_f32, cudaStream_t st) {
+  using S_ = FwdGemm<BM, BN>;
+  CUtensorMap ta, tw;
+  int e = encode_2d(&ta, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, A, M, K, 64, BM,
+                    CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e) return e;
+  e = encode_2d(&tw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, W, K, N, 64, S_::BK,
+                CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e) return e;
+  static int resident[WC_MAX_DEVICES];
+  const int blocks = device_blocks(resident, gemm_bias_act_wgmma_kernel<BM, BN>, S_::THREADS,
+                                   GC_SMEM_CAP);
+  if (blocks < 0) return -blocks;
+  // a stage goes back to the producer one stage late (one group of products
+  // stays in flight): a longer reduction needs two stages or more
+  if (stages < 2 && K > S_::BK) return (int)cudaErrorInvalidValue;
+  const size_t smem = gc_smem_bytes(stages, S_::STAGE_BYTES, S_::TILE_BYTES);
+  if (smem > GC_SMEM_CAP) return (int)cudaErrorInvalidValue;
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  gemm_bias_act_wgmma_kernel<BM, BN><<<grid, S_::THREADS, smem, st>>>(ta, tw, bias, out, M, N,
+                                                                      K, stages, act, out_f32);
+  return (int)cudaGetLastError();
 }
 
 // f32 operands: SIMT FMA (the tensor cores would round to TF32), 64x64 tile,
@@ -582,33 +657,35 @@ int launch_attn_bf16(const void* qkv, const void* rel_bias, const void* mask, co
 }  // namespace
 
 // dt_code: 0 = float32, 1 = bfloat16
+// bm x bn: the bf16 kernel's output tile, 128 x 128, 128 x 64 or 64 x 64,
+// and stages its ring of 64-deep stages, 1 to 8 (fused_block.py:_gemm_plan);
+// the f32 body ignores them.
 extern "C" int gemm_bias_act(const void* A, const void* W, const void* bias, void* out,
-                             int M, int N, int K, int dt_code, int out_f32, int act,
-                             void* stream) {
+                             int M, int N, int K, int dt_code, int out_f32, int act, int bm,
+                             int bn, int stages, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dt_code == 1) {
-    dim3 grid((N + GB_N - 1) / GB_N, (M + GB_M - 1) / GB_M);
+    if (stages < 1 || stages > GC_MAX_STAGES) return (int)cudaErrorInvalidValue;
     const bf16* a = static_cast<const bf16*>(A);
     const bf16* w = static_cast<const bf16*>(W);
     const bf16* b = static_cast<const bf16*>(bias);
-    if (out_f32) {
-      float* o = static_cast<float*>(out);
-      if (act) gemm_bf16_kernel<1, float><<<grid, G_THREADS, 0, st>>>(a, w, b, o, M, N, K);
-      else gemm_bf16_kernel<0, float><<<grid, G_THREADS, 0, st>>>(a, w, b, o, M, N, K);
-    } else {
-      bf16* o = static_cast<bf16*>(out);
-      if (act) gemm_bf16_kernel<1, bf16><<<grid, G_THREADS, 0, st>>>(a, w, b, o, M, N, K);
-      else gemm_bf16_kernel<0, bf16><<<grid, G_THREADS, 0, st>>>(a, w, b, o, M, N, K);
+#define GBA(BM, BN) \
+  launch_gemm_bias_act_bf16<BM, BN>(a, w, b, out, M, N, K, stages, act, out_f32, st)
+    switch (bm * 1000 + bn) {
+      case 128128: return GBA(128, 128);
+      case 128064: return GBA(128, 64);
+      case 64064: return GBA(64, 64);
     }
-  } else {
-    dim3 grid((N + FB - 1) / FB, (M + FB - 1) / FB);
-    const float* a = static_cast<const float*>(A);
-    const float* w = static_cast<const float*>(W);
-    const float* b = static_cast<const float*>(bias);
-    float* o = static_cast<float*>(out);
-    if (act) gemm_f32_kernel<1><<<grid, 256, 0, st>>>(a, w, b, o, M, N, K);
-    else gemm_f32_kernel<0><<<grid, 256, 0, st>>>(a, w, b, o, M, N, K);
+#undef GBA
+    return (int)cudaErrorInvalidValue;
   }
+  dim3 grid((N + FB - 1) / FB, (M + FB - 1) / FB);
+  const float* a = static_cast<const float*>(A);
+  const float* w = static_cast<const float*>(W);
+  const float* b = static_cast<const float*>(bias);
+  float* o = static_cast<float*>(out);
+  if (act) gemm_f32_kernel<1><<<grid, 256, 0, st>>>(a, w, b, o, M, N, K);
+  else gemm_f32_kernel<0><<<grid, 256, 0, st>>>(a, w, b, o, M, N, K);
   return (int)cudaGetLastError();
 }
 

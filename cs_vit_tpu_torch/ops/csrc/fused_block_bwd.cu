@@ -24,16 +24,18 @@
 //   dx   = h1b + dqkv Wqkv^T                gemm_dgrad  (residual epilogue, dt out)
 // Rounding points are _bwd_kernel's: every gradient that feeds a product is
 // rounded to the compute dtype on its way into the product (the kernels read
-// f32 gradients and round them while staging tiles), bias and LN grads sum the
+// f32 gradients and round them as they load them), bias and LN grads sum the
 // f32 values, the attention-output grad ab and p and ds are rounded to the
 // compute dtype, gelu'(m1) reads m1 rounded to the compute dtype.
 //
 // What bounds each kernel on the H100, and what the design does about it:
-//  * gemm_dgrad: operations (the 8*C^2 + 16*C^2 FLOPs per token of the
-//    block's four GEMMs, twice). bf16 tiles of 64x128x32 on the tensor cores
-//    (WMMA), weights staged by cp.async, f32 gradients converted to bf16 as
-//    they are staged; two shared-memory buffers. It reads W in its forward
-//    [in,out] layout as a column-major operand, so no transpose pass runs.
+//  * gemm_dgrad: bytes (the f32 dY, 4 bytes an element, and the output
+//    dominate; C <= 1024 gives the products little reuse). bf16: wgmma
+//    (gemm_core.cuh) on output tiles of 128 x 128, 128 x 64 or 64 x 64, W read
+//    as stored ([in,out]: K-major for this product, no transpose pass) and
+//    the f32 dY by TMA into an mbarrier ring, dY rounded to bf16 in
+//    registers into the A fragments, the epilogue through shared memory in
+//    contiguous chunks. f32: the SIMT kernel below.
 //  * gemm_wgrad: bytes. The product reduces over all M token rows; the f32
 //    gradient dY (4 bytes an element, read once for every 128 output rows)
 //    dominates what it moves. bf16: wgmma (gemm_core.cuh), X by TMA into a
@@ -65,7 +67,6 @@
 // nothing (partials live in caller-provided scratch) and does not synchronise.
 
 #include <limits.h>
-#include <mma.h>
 
 #include "common.cuh"
 #include "gemm_core.cuh"
@@ -98,123 +99,223 @@ int launch_sum_splits(const float* part, float* out, int splits, size_t n, cudaS
   return (int)cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// bf16 GEMMs on the tensor cores: 64x128 output tile, depth 32, 4 warps of
-// 32x64, two shared-memory stages.
-// ---------------------------------------------------------------------------
-
-constexpr int TM = 64, TN = 128, TK = 32, G_THREADS = 128;
 enum { EPI_NONE = 0, EPI_GELU = 1, EPI_ADD = 2 };
 
-// dgrad: out[M,K] = epi(round(dY[M,N]) . W[K,N]^T). Output tile rows m, cols
-// k; depth n. A = dY (f32, staged as bf16), B = W read as column-major [n][k].
-template <int EPI, typename AuxT, typename OutT>
-__global__ void __launch_bounds__(G_THREADS)
-dgrad_bf16_kernel(const float* __restrict__ dY, const bf16* __restrict__ W,
-                  const AuxT* __restrict__ aux, OutT* __restrict__ out, int M, int N, int K) {
-  namespace nw = nvcuda::wmma;
-  constexpr int LD = TK + 8;  // 40 bf16 = 80 B rows: WMMA pointers stay 32 B aligned
-  __shared__ __align__(128) bf16 As[2][TM * LD];  // [m][n]
-  __shared__ __align__(128) bf16 Bs[2][TN * LD];  // [k][n]: column-major B
-  __shared__ __align__(128) float Cs[G_THREADS / 32][16 * 16];
+// ---------------------------------------------------------------------------
+// gemm_dgrad, bf16: out[M,K] = epi(round(dY[M,N]) . W[K,N]^T) on wgmma
+// (gemm_core.cuh). Replaces the input-grad products of
+// cs_vit_tpu/ops/fused_block.py:_bwd_kernel (:394).
+// Output tile BM x BN (128 x 128, 128 x 64 or 64 x 64 in rows m and columns
+// k; one consumer warpgroup per 64 rows; fused_block.py:_gemm_plan), depth =
+// n, 64 a stage. Both operands are K-major (n contiguous). Thread 0 keeps a
+// ring of up to 8 stages (sized to let two blocks share an SM: two stages
+// of 48 or 40 KB for the 128-row tiles; fewer where N is shorter) full by
+// TMA, refilling each stage as soon as the block has handed it back: W
+// [K,N] as stored, which is this product's B operand (a box {64 of n, BN
+// rows of k}, bf16), and the f32 dY rows (two boxes {32 of n, BM rows}),
+// both 128-byte swizzled; out-of-bounds rows and columns arrive as 0. (A
+// producer warp of its own would make the block 9 warps: three of
+// them on one of the SM's four register files, which caps a thread at 168
+// registers, and two such blocks at 96.) dY is rounded to bf16 where
+// it is read, as the plain version rounds it: each consumer thread reads
+// the f32 values of its own A fragments (two rows, four column pairs per
+// 16-deep step) from the stage, packs them to bf16 pairs, and the products
+// take A from registers (wgmma ... {a0..a3}, descB), so the bf16 A never
+// goes back to shared memory and needs no proxy fence (loaded from device
+// memory a stage ahead into registers instead, they would leave each stage
+// waiting one memory latency). A stage goes back to thread 0 when its
+// products are done: a block keeps no product in flight past its stage
+// (with one group in flight, a thread packing the next stage's fragments
+// would define a wgmma's input registers while it runs, and ptxas then
+// serialises every product), and the SM's other block fills the gaps. (A
+// ring of three or more stages, one block an SM, and a bf16 copy of dY in
+// shared memory for wgmma to read with one group in flight both measured
+// slower on the step's shapes: cs_vit_tpu_torch/tools/gemm_sweep.py.) The
+// epilogue stages the f32
+// accumulators in shared memory (the ring, free by then) and walks the tile
+// in rows of 4-column chunks, so that a warp's loads of aux and stores of
+// the output are contiguous and a thread issues all its aux loads before
+// its first store (rather than 8 rows of 8 or 16 bytes a warp instruction
+// in the accumulators' own pairs, one load before each store): times
+// gelu'(m1) with m1 read in bf16 (the exact erf), or plus aux read in bf16
+// or f32, one rounding to the output dtype.
+// The grid walks the column tiles of one band of BM dY rows before the next
+// band, so the blocks that read the same f32 dY rows run together and all
+// but the first read them from L2: dY comes from device memory about once,
+// though each band is read ceil(K / BN) times.
+// What bounds it on the H100: bytes (4 M N + 2 N K + 4 or 2 M K, plus the
+// aux, against 2 M N K FLOPs): 0.77 ms a b8 step, summed per call as
+// chip_smoke.py counts it.
+// ---------------------------------------------------------------------------
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int m0 = blockIdx.y * TM, k0 = blockIdx.x * TN;
-  const int wr = warp >> 1, wc = warp & 1;
+template <int BM, int BN>
+struct DgradGemm {
+  // no producer warp: with one, a block of 9 warps may give a thread no
+  // more than 168 registers (three warps on one of the SM's four register
+  // files), and two such blocks no more than 96
+  static constexpr int WG = BM / 64, THREADS = 128 * WG, BK = 64;
+  static constexpr int W_BYTES = BN * GC_ATOM_ROW_BYTES;      // BN rows x 64 of n, bf16
+  static constexpr int DY_HALF_BYTES = BM * GC_ATOM_ROW_BYTES;  // BM rows x 32 of n, f32
+  static constexpr int STAGE_BYTES = W_BYTES + 2 * DY_HALF_BYTES;
+  static constexpr int TILE_BYTES = BM * acc_pitch<BN>() * 4;
+};
 
-  float4 areg[TM * TK / 4 / G_THREADS];  // 4 float4 per thread
-  auto load_a = [&](int n0) {
+// this thread's A fragments for one 64-deep stage, rounded to bf16 pairs
+// from the stage's f32 dY tile: two 128-byte-swizzled halves of 32 columns
+// (TMA boxes {32, BM}), row `row` (+8 if q & 1), columns 16 kk + c (+8 if
+// q & 2) and the next. Rows and columns past M or N arrived as 0.
+__device__ __forceinline__ void dy_frags(uint32_t (&af)[4][4], const unsigned char* dy_tile,
+                                         int half_bytes, int row, int c) {
 #pragma unroll
-    for (int t = 0; t < TM * TK / 4 / G_THREADS; ++t) {
-      const int c = tid + t * G_THREADS;
-      const int r = c >> 3, nc = (c & 7) * 4;
-      const int gm = m0 + r, gn = n0 + nc;
-      areg[t] = (gm < M && gn < N)
-                    ? *reinterpret_cast<const float4*>(dY + (size_t)gm * N + gn)
-                    : make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int r = row + 8 * (q & 1), col = 16 * kk + c + 4 * (q & 2);
+      const int cw = col & 31;
+      const float2 v = *reinterpret_cast<const float2*>(
+          dy_tile + (col >> 5) * half_bytes + r * GC_ATOM_ROW_BYTES
+          + ((((cw >> 2) ^ (r & 7))) << 4) + (cw & 3) * 4);
+      af[kk][q] = pack_bf16(v.x, v.y);
     }
+}
+
+template <int BM, int BN>
+__global__ void __launch_bounds__(DgradGemm<BM, BN>::THREADS, 1)
+dgrad_wgmma_kernel(const __grid_constant__ CUtensorMap tm_w,
+                   const __grid_constant__ CUtensorMap tm_dy, const void* __restrict__ aux,
+                   void* __restrict__ out, int M, int N, int K, int stages, int epi, int aux_f32,
+                   int out_f32) {
+  using S_ = DgradGemm<BM, BN>;
+  constexpr int BK = S_::BK, STAGE_BYTES = S_::STAGE_BYTES, CONSUMERS = S_::THREADS;
+  extern __shared__ unsigned char dg_raw[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(dg_raw);
+  uint64_t* empty = full + GC_MAX_STAGES;
+  unsigned char* ring = gc_ring(dg_raw);
+
+  const int tid = threadIdx.x;
+  const int k0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int iters = (N + BK - 1) / BK;
+  // thread 0 issues every load: the first `stages` here, each later one
+  // into the stage the block has just handed back
+  auto load = [&](int it, int s) {
+    unsigned char* st = ring + s * STAGE_BYTES;
+    const int n = it * BK;
+    mbar_arrive_expect_tx(&full[s], STAGE_BYTES);
+    tma_load_2d(st, &tm_w, &full[s], n, k0);
+    tma_load_2d(st + S_::W_BYTES, &tm_dy, &full[s], n, m0);
+    tma_load_2d(st + S_::W_BYTES + S_::DY_HALF_BYTES, &tm_dy, &full[s], n + 32, m0);
   };
-  auto store_a = [&](int buf) {
-#pragma unroll
-    for (int t = 0; t < TM * TK / 4 / G_THREADS; ++t) {
-      const int c = tid + t * G_THREADS;
-      const int r = c >> 3, nc = (c & 7) * 4;
-      __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&As[buf][r * LD + nc]);
-      p[0] = __floats2bfloat162_rn(areg[t].x, areg[t].y);
-      p[1] = __floats2bfloat162_rn(areg[t].z, areg[t].w);
-    }
-  };
-  auto load_b = [&](int buf, int n0) {
-    for (int c = tid; c < TN * TK / 8; c += G_THREADS) {
-      const int r = c >> 2, nc = (c & 3) * 8;
-      const int gk = k0 + r, gn = n0 + nc;
-      const bool ok = gk < K && gn < N;
-      cp_async16(&Bs[buf][r * LD + nc], ok ? W + (size_t)gk * N + gn : W, ok);
-    }
-    cp_async_commit();
-  };
 
-  nw::fragment<nw::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) nw::fill_fragment(acc[i][j], 0.0f);
-
-  const int nt = (N + TK - 1) / TK;
-  load_b(0, 0);
-  load_a(0);
-  store_a(0);
-  cp_async_wait<0>();
-  __syncthreads();
-  for (int t = 0; t < nt; ++t) {
-    const int buf = t & 1;
-    const bool more = t + 1 < nt;
-    if (more) {
-      load_b(buf ^ 1, (t + 1) * TK);
-      load_a((t + 1) * TK);
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS);
     }
-#pragma unroll
-    for (int kk = 0; kk < TK; kk += 16) {
-      nw::fragment<nw::matrix_a, 16, 16, 16, bf16, nw::row_major> af[2];
-      nw::fragment<nw::matrix_b, 16, 16, 16, bf16, nw::col_major> bfr[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        nw::load_matrix_sync(af[i], &As[buf][(wr * 32 + i * 16) * LD + kk], LD);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        nw::load_matrix_sync(bfr[j], &Bs[buf][(wc * 64 + j * 16) * LD + kk], LD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) nw::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
-    }
-    if (more) {
-      store_a(buf ^ 1);
-      cp_async_wait<0>();
-    }
-    __syncthreads();
+    mbar_fence_init();
+    for (int it = 0; it < stages && it < iters; ++it) load(it, it);
   }
+  __syncthreads();
 
-  float* cs = Cs[warp];
+  const int lane = tid & 31, wg = tid >> 7;
+  const int row = 16 * (tid >> 5) + (lane >> 2);  // this thread's first A row in the tile
+  float acc[BN / 2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+  uint32_t af[4][4];  // this stage's A fragments, bf16 pairs
+  for (int it = 0, s = 0, ph = 0; it < iters; ++it) {
+    mbar_wait(&full[s], ph);
+    const unsigned char* st = ring + s * STAGE_BYTES;
+    dy_frags(af, st + S_::W_BYTES, S_::DY_HALF_BYTES, row, 2 * (lane & 3));
+    const uint32_t w_addr = gc_smem(st);
+    wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      nw::store_matrix_sync(cs, acc[i][j], 16, nw::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int gm = m0 + wr * 32 + i * 16 + (e >> 4);
-        const int gk = k0 + wc * 64 + j * 16 + (e & 15);
-        if (gm < M && gk < K) {
-          const size_t o = (size_t)gm * K + gk;
-          float v = cs[e];
-          if (EPI == EPI_GELU) v *= gelu_grad(to_f(aux[o]));
-          if (EPI == EPI_ADD) v += to_f(aux[o]);
-          out[o] = from_f<OutT>(v);
-        }
-      }
-      __syncwarp();
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs<BN, 0>(acc, af[kk], wgmma_desc_k_sw128(w_addr + kk * 32));
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) wgmma_keep(af[kk][q]);
+    mbar_arrive(&empty[s]);
+    if (tid == 0 && it + stages < iters) {  // refill the stage once all are done with it
+      mbar_wait(&empty[s], ph);
+      load(it + stages, s);
     }
+    __syncwarp();  // warp 0 whole again before the next wgmma
+    if (++s == stages) s = 0, ph ^= 1;
+  }
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) wgmma_keep(acc[i]);
+
+  // epilogue: the accumulators through shared memory (the ring is free once
+  // every warpgroup's last products are done), then out in rows of 4-column
+  // chunks, each warp's loads of aux and stores contiguous; a thread loads
+  // all of its aux chunks before it computes any output
+  constexpr int CH = BN / 4, RSTEP = CONSUMERS / CH, ROWS = BM / RSTEP, P = acc_pitch<BN>();
+  float* tile = reinterpret_cast<float*>(ring);
+  named_barrier(1, CONSUMERS);
+  stage_acc<BN>(tile + wg * 64 * P, acc, tid & 127);
+  named_barrier(1, CONSUMERS);
+  const int cq = tid % CH, rq = tid / CH, c = k0 + 4 * cq;
+  if (c >= K) return;  // K is a multiple of 8: a chunk is in or out whole
+  constexpr int BATCH = ROWS < 8 ? ROWS : 8;  // rows whose aux is loaded at once
+#pragma unroll
+  for (int i0 = 0; i0 < ROWS; i0 += BATCH) {
+    float4 x[BATCH];
+#pragma unroll
+    for (int i = 0; i < BATCH; ++i) {
+      const int r = m0 + rq + RSTEP * (i0 + i);
+      const size_t o = (size_t)r * K + c;
+      x[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (epi != EPI_NONE && r < M)
+        x[i] = aux_f32 ? load4(static_cast<const float*>(aux) + o)
+                       : load4(static_cast<const bf16*>(aux) + o);
+    }
+#pragma unroll
+    for (int i = 0; i < BATCH; ++i) {
+      const int rt = rq + RSTEP * (i0 + i), r = m0 + rt;
+      if (r >= M) break;
+      float4 v = *reinterpret_cast<const float4*>(tile + rt * P + 4 * cq);
+      if (epi == EPI_GELU) {
+        v.x *= gelu_grad(x[i].x);
+        v.y *= gelu_grad(x[i].y);
+        v.z *= gelu_grad(x[i].z);
+        v.w *= gelu_grad(x[i].w);
+      } else if (epi == EPI_ADD) {
+        v.x += x[i].x;
+        v.y += x[i].y;
+        v.z += x[i].z;
+        v.w += x[i].w;
+      }
+      const size_t o = (size_t)r * K + c;
+      if (out_f32) store4(static_cast<float*>(out) + o, v);
+      else store4(static_cast<bf16*>(out) + o, v);
+    }
+  }
+}
+
+template <int BM, int BN>
+int launch_dgrad_bf16(const float* dY, const bf16* W, const void* aux, void* out, int M, int N,
+                      int K, int stages, int epi, int aux_f32, int out_f32, cudaStream_t st) {
+  using S_ = DgradGemm<BM, BN>;
+  CUtensorMap tw, tdy;
+  int e = encode_2d(&tw, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, W, K, N, 64, BN,
+                    CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e) return e;
+  e = encode_2d(&tdy, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, dY, M, N, 32, BM,
+                CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e) return e;
+  static int resident[WC_MAX_DEVICES];
+  const int blocks = device_blocks(resident, dgrad_wgmma_kernel<BM, BN>, S_::THREADS,
+                                   GC_SMEM_CAP);
+  if (blocks < 0) return -blocks;
+  const size_t smem = gc_smem_bytes(stages, S_::STAGE_BYTES, S_::TILE_BYTES);
+  if (smem > GC_SMEM_CAP) return (int)cudaErrorInvalidValue;
+  dim3 grid((K + BN - 1) / BN, (M + BM - 1) / BM);
+  dgrad_wgmma_kernel<BM, BN><<<grid, S_::THREADS, smem, st>>>(tw, tdy, aux, out, M, N, K, stages,
+                                                              epi, aux_f32, out_f32);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -352,8 +453,9 @@ wgrad_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x, const float* __rest
     const uint32_t xa = gc_smem(st + wg * ATOM_BYTES), ba = gc_smem(bs);
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_m64n128k16_mn(acc, wgmma_desc_mn_sw128(xa + kk * 16 * GC_ATOM_ROW_BYTES, ATOM_BYTES),
-                          wgmma_desc_mn_sw128(ba + kk * 16 * GC_ATOM_ROW_BYTES, ATOM_BYTES));
+      wgmma_m64n128k16_ss<1, 1>(
+          acc, wgmma_desc_mn_sw128(xa + kk * 16 * GC_ATOM_ROW_BYTES, ATOM_BYTES),
+          wgmma_desc_mn_sw128(ba + kk * 16 * GC_ATOM_ROW_BYTES, ATOM_BYTES));
     wgmma_commit();
     wgmma_wait<1>();  // the previous stage's products are done: hand it back
     if (it > 0) mbar_arrive(&empty[(it - 1) % STAGES]);
@@ -1321,44 +1423,40 @@ int launch_attn_bwd_bf16(const void* qkv, const void* dout, const void* rel_bias
 
 // dt_code: 0 = float32, 1 = bfloat16. epi: 0 none, 1 GELU' (aux = m1 in the
 // compute dtype), 2 add (aux in aux_f32 ? f32 : compute dtype). out_f32 picks
-// f32 or compute-dtype output.
+// f32 or compute-dtype output. bm x bn: the bf16 kernel's output tile,
+// 128 x 128, 128 x 64 or 64 x 64, and stages its ring of 64-deep stages, 1 to
+// 8 (fused_block.py:_gemm_plan); the f32 body ignores them.
 extern "C" int gemm_dgrad(const void* dY, const void* W, const void* aux, void* out, int M,
-                          int N, int K, int dt_code, int epi, int aux_f32, int out_f32,
-                          void* stream) {
+                          int N, int K, int dt_code, int epi, int aux_f32, int out_f32, int bm,
+                          int bn, int stages, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* dy = static_cast<const float*>(dY);
+  if (epi < EPI_NONE || epi > EPI_ADD) return (int)cudaErrorInvalidValue;
   if (dt_code == 1) {
-    dim3 grid((K + TN - 1) / TN, (M + TM - 1) / TM);
+    if (stages < 1 || stages > GC_MAX_STAGES) return (int)cudaErrorInvalidValue;
     const bf16* w = static_cast<const bf16*>(W);
-#define DGRAD(EPI, AUXT, OUTT)                                                            \
-  dgrad_bf16_kernel<EPI, AUXT, OUTT><<<grid, G_THREADS, 0, st>>>(                         \
-      dy, w, static_cast<const AUXT*>(aux), static_cast<OUTT*>(out), M, N, K)
-    if (epi == EPI_GELU) {
-      if (out_f32) DGRAD(EPI_GELU, bf16, float); else DGRAD(EPI_GELU, bf16, bf16);
-    } else if (epi == EPI_ADD) {
-      if (aux_f32) {
-        if (out_f32) DGRAD(EPI_ADD, float, float); else DGRAD(EPI_ADD, float, bf16);
-      } else {
-        if (out_f32) DGRAD(EPI_ADD, bf16, float); else DGRAD(EPI_ADD, bf16, bf16);
-      }
-    } else {
-      if (out_f32) DGRAD(EPI_NONE, float, float); else DGRAD(EPI_NONE, float, bf16);
+#define DGRAD(BM, BN) \
+  launch_dgrad_bf16<BM, BN>(dy, w, aux, out, M, N, K, stages, epi, aux_f32, out_f32, st)
+    switch (bm * 1000 + bn) {
+      case 128128: return DGRAD(128, 128);
+      case 128064: return DGRAD(128, 64);
+      case 64064: return DGRAD(64, 64);
     }
 #undef DGRAD
-  } else {
-    // f32: the output is f32 and so is aux
-    dim3 grid((K + FB - 1) / FB, (M + FB - 1) / FB, 1);
-    const float* w = static_cast<const float*>(W);
-    const float* ax = static_cast<const float*>(aux);
-    float* o = static_cast<float*>(out);
+    return (int)cudaErrorInvalidValue;
+  }
+  // f32: the output is f32 and so is aux
+  dim3 grid((K + FB - 1) / FB, (M + FB - 1) / FB, 1);
+  const float* w = static_cast<const float*>(W);
+  const float* ax = static_cast<const float*>(aux);
+  float* o = static_cast<float*>(out);
 #define DGRAD32(EPI)                                                                      \
   gemm_f32_strided_kernel<EPI, float><<<grid, 256, 0, st>>>(dy, w, ax, o, M, K, N, N, 1, 1, \
                                                             N, N, 0)
-    if (epi == EPI_GELU) DGRAD32(EPI_GELU);
-    else if (epi == EPI_ADD) DGRAD32(EPI_ADD);
-    else DGRAD32(EPI_NONE);
+  if (epi == EPI_GELU) DGRAD32(EPI_GELU);
+  else if (epi == EPI_ADD) DGRAD32(EPI_ADD);
+  else DGRAD32(EPI_NONE);
 #undef DGRAD32
-  }
   return (int)cudaGetLastError();
 }
 

@@ -35,6 +35,7 @@ through :class:`FusedSwinBlock`, whose backward is the kernels above.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -49,12 +50,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "fused_block": {
-        "gemm_bias_act": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        "gemm_bias_act": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
         "ln_residual": (_P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, ctypes.c_float, _I, _I, _P),
         "swin_window_attn_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     },
     "fused_block_bwd": {
-        "gemm_dgrad": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+        "gemm_dgrad": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
         "gemm_wgrad": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
         "ln_residual_bwd": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, ctypes.c_float,
                             _I, _I, _I, _I, _P),
@@ -95,9 +96,15 @@ def _is_cpu(*tensors: torch.Tensor) -> bool:
 
 
 def _sm_count(t: torch.Tensor) -> int:
-    """Streaming multiprocessors of t's card: the split-K and LN-backward
-    grids aim at a few blocks on each."""
-    return torch.cuda.get_device_properties(t.device).multi_processor_count
+    """Streaming multiprocessors of t's card: the GEMM tiles, split-K and
+    LN-backward grids aim at filling them. Asked once per card: each GEMM
+    launch needs it."""
+    return _sm_count_of(t.device.index)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count_of(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -120,6 +127,56 @@ def launch_counts() -> dict:
     ``fused_swin_block`` counts block forwards and ``FusedSwinBlock`` block
     backwards."""
     return {fn.__name__: fn.launches for fn in _counted()}
+
+
+def _aligned16(*tensors: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 wgmma GEMMs' tiles (gemm_bias_act, gemm_dgrad)
+# ---------------------------------------------------------------------------
+
+# output tiles (rows, columns) of the bf16 wgmma GEMMs, largest first; a
+# ring of up to GEMM_STAGES stages of GEMM_DEPTH of the reduction in at most
+# GEMM_RING_BYTES of shared memory (two blocks an SM)
+GEMM_TILES = ((128, 128), (128, 64), (64, 64))
+GEMM_DEPTH, GEMM_STAGES, GEMM_RING_BYTES = 64, 8, 110 * 1024
+
+
+def _gemm_stage_bytes(kernel: str, bm: int, bn: int) -> int:
+    """Shared memory of one ring stage of the bf16 `kernel` with a bm x bn
+    output tile: GEMM_DEPTH of the reduction of the A rows (bf16 for
+    gemm_bias_act, the f32 dY for gemm_dgrad) and of the W columns (bf16)."""
+    a_bytes = {"gemm_bias_act": 2, "gemm_dgrad": 4}[kernel]
+    return GEMM_DEPTH * (bm * a_bytes + bn * 2)
+
+
+def _gemm_tiles(M: int, N: int, tile: Tuple[int, int]) -> int:
+    """Output tiles of a bf16 gemm_bias_act or gemm_dgrad with an [M, N]
+    output."""
+    return -(-M // tile[0]) * -(-N // tile[1])
+
+
+@functools.lru_cache(maxsize=None)
+def _gemm_plan(kernel: str, M: int, N: int, R: int, sms: int) -> Tuple[int, int, int]:
+    """(rows, columns, stages) of the output tile and operand ring of the
+    bf16 `kernel` ("gemm_bias_act" or "gemm_dgrad") for an [M, N] output
+    over a reduction of R, on a card of `sms` SMs. The tile is the largest
+    whose tiles fill at least half of the SMs (a larger tile reads each
+    operand row and column fewer times: at the Swin-B shapes they come
+    mostly from L2), else the smallest. The ring takes as many stages as
+    GEMM_RING_BYTES holds, at least two, and no more than the reduction
+    has: two blocks an SM, so that one block's epilogue and loads overlap
+    the other's products. (gemm_dgrad's 128-row tiles get two stages of
+    40 or 48 KB; with three or more, one block an SM,
+    cs_vit_tpu_torch/tools/gemm_sweep.py
+    reads the step's input grads slower.) The kernels never split the
+    reduction: every output element is one block's sum, and no partials
+    are written."""
+    bm, bn = next((t for t in GEMM_TILES if 2 * _gemm_tiles(M, N, t) >= sms), GEMM_TILES[-1])
+    stages = max(2, GEMM_RING_BYTES // _gemm_stage_bytes(kernel, bm, bn))
+    return bm, bn, min(stages, GEMM_STAGES, max(1, -(-R // GEMM_DEPTH)))
 
 
 # ---------------------------------------------------------------------------
@@ -145,7 +202,8 @@ def gemm_bias_act(
 ) -> torch.Tensor:
     """``act(a @ w + bias)``: a [M,K], w [K,N], bias [N], all one dtype
     (bf16 or f32); f32 accumulation; output in `out_dtype` (the input dtype
-    or f32). bf16 needs K and N to be multiples of 8."""
+    or f32). bf16 needs K and N to be multiples of 8 and 16-byte aligned
+    operands."""
     _require(act in ("none", "gelu"), f"act must be 'none' or 'gelu', got {act!r}")
     out_dtype = out_dtype or a.dtype
     if _is_cpu(a, w, bias):
@@ -161,10 +219,13 @@ def gemm_bias_act(
              "gemm_bias_act needs contiguous operands")
     if dt == torch.bfloat16:
         _require(K % 8 == 0 and N % 8 == 0, "bf16 gemm_bias_act needs K, N multiples of 8")
+        _require(_aligned16(a, w, bias),
+                 "the bf16 gemm_bias_act kernel needs 16-byte aligned operands")
     out = torch.empty((M, N), dtype=out_dtype, device=a.device)
     rc = _lib().gemm_bias_act(
         a.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), M, N, K,
-        _DT_CODE[dt], int(out_dtype == torch.float32), int(act == "gelu"), _stream(a),
+        _DT_CODE[dt], int(out_dtype == torch.float32), int(act == "gelu"),
+        *_gemm_plan("gemm_bias_act", M, N, K, _sm_count(a)), _stream(a),
     )
     _check_launch("gemm_bias_act", rc)
     gemm_bias_act.launches += 1
@@ -337,7 +398,7 @@ def window_attention(
         _require(mask.shape == (nW, L, L) and mask.dtype == dt,
                  "mask must be [nW, L, L] in qkv's dtype")
     _require(all(t.is_contiguous() for t in tensors), "window_attention needs contiguous operands")
-    _require(dt != torch.bfloat16 or all(t.data_ptr() % 16 == 0 for t in tensors),
+    _require(dt != torch.bfloat16 or _aligned16(*tensors),
              "the bf16 window_attention kernel needs 16-byte aligned operands")
     out = torch.empty((B, H, W, C), dtype=dt, device=qkv.device)
     rc = _lib().swin_window_attn_fwd(
@@ -385,7 +446,7 @@ def gemm_dgrad(
     forward's [in, out] layout, bf16 or f32. ``epi="gelu"``: times gelu'(aux)
     with aux [M,K] (the pre-GELU activation) in w's dtype; ``epi="add"``: plus
     aux [M,K] in w's dtype or f32. Output [M,K] in `out_dtype`, w's dtype
-    or f32.
+    or f32. bf16 needs 16-byte aligned operands.
     """
     _require(epi in ("none", "gelu", "add"), f"epi must be 'none', 'gelu' or 'add', got {epi!r}")
     _require((aux is None) == (epi == "none"), "aux is given exactly when epi is not 'none'")
@@ -406,12 +467,14 @@ def gemm_dgrad(
         _require(aux.dtype in allowed, f"aux must be in {allowed}")
     _require(all(t.is_contiguous() for t in tensors), "gemm_dgrad needs contiguous operands")
     _require(N % 8 == 0 and K % 8 == 0, "gemm_dgrad needs K, N multiples of 8")
+    _require(dt != torch.bfloat16 or _aligned16(*tensors),
+             "the bf16 gemm_dgrad kernel needs 16-byte aligned operands")
     out = torch.empty((M, K), dtype=out_dtype, device=dy.device)
     rc = _lib("fused_block_bwd").gemm_dgrad(
         dy.data_ptr(), w.data_ptr(), None if aux is None else aux.data_ptr(), out.data_ptr(),
         M, N, K, _DT_CODE[dt], {"none": 0, "gelu": 1, "add": 2}[epi],
         int(aux is not None and aux.dtype == torch.float32), int(out_dtype == torch.float32),
-        _stream(dy),
+        *_gemm_plan("gemm_dgrad", M, K, N, _sm_count(dy)), _stream(dy),
     )
     _check_launch("gemm_dgrad", rc)
     gemm_dgrad.launches += 1
@@ -479,7 +542,7 @@ def gemm_wgrad(a: torch.Tensor, dy: torch.Tensor) -> Tuple[torch.Tensor, torch.T
     _require(dy.dtype == torch.float32 and dy.shape == (M, N), "dy must be f32 [M,N]")
     _require(a.is_contiguous() and dy.is_contiguous(), "gemm_wgrad needs contiguous operands")
     _require(N % 8 == 0 and K % 8 == 0, "gemm_wgrad needs K, N multiples of 8")
-    _require(dt != torch.bfloat16 or (a.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0),
+    _require(dt != torch.bfloat16 or _aligned16(a, dy),
              "the bf16 gemm_wgrad kernel needs 16-byte aligned operands")
     splits, rows = _wgrad_splits(M, K, N, _sm_count(a), dt == torch.bfloat16)
     out = torch.empty(K * N + N, dtype=torch.float32, device=a.device)
@@ -693,7 +756,7 @@ def window_attention_bwd(
         _require(mask.shape == (nW, L, L) and mask.dtype == dt,
                  "mask must be [nW, L, L] in qkv's dtype")
     _require(all(t.is_contiguous() for t in tensors), "window_attention_bwd needs contiguous operands")
-    _require(dt != torch.bfloat16 or all(t.data_ptr() % 16 == 0 for t in tensors),
+    _require(dt != torch.bfloat16 or _aligned16(*tensors),
              "the bf16 window_attention_bwd kernel needs 16-byte aligned operands")
     per_group, groups = 0, None
     if dt == torch.bfloat16:

@@ -189,6 +189,33 @@ def test_fused_operands_are_built_once_per_set_of_weights(rng):
     np.testing.assert_allclose(tmod(x).detach().numpy(), got.numpy(), atol=0, rtol=0)
 
 
+def test_fused_operands_follow_fresh_weights_on_recycled_storage(rng):
+    """A train step hands the model fresh copies of its weights on every step
+    (``train/step.py`` casts them anew, ``functional_call`` installs them at
+    version 0), and an allocator may place the next step's copies on the
+    storage of the last step's. Here the second copies are new tensors on the
+    first copies' numpy buffers, at version 0, with other values: the kernel
+    path must rebuild its operands for them and agree with the eager path on
+    the same weights (3e-5, as above)."""
+    kw = dict(image_size=32, patch_size=4, embed_dim=16, depths=(2,), num_heads=(2,),
+              window_size=4, drop_path_rate=0.0, pretrained_window_sizes=(0,))
+    tmod = SwinV2(SwinV2Config(**kw), attention_impl="fused").eval()
+    x = torch.from_numpy(rng.normal(size=(2, 32, 32, 3)).astype(np.float32))
+    arrays = {n: p.detach().numpy().copy() for n, p in tmod.named_parameters()}
+    first = {n: torch.from_numpy(a) for n, a in arrays.items()}
+    with torch.no_grad():
+        torch.func.functional_call(tmod, first, (x,))
+        for a in arrays.values():
+            a *= 1.5
+        second = {n: torch.from_numpy(a) for n, a in arrays.items()}
+        assert all(second[n].data_ptr() == first[n].data_ptr() and second[n]._version == 0
+                   for n in arrays)
+        got = torch.func.functional_call(tmod, second, (x,))
+        tmod.set_attention_impl("eager")
+        want = torch.func.functional_call(tmod, second, (x,))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=3e-5, rtol=3e-5)
+
+
 def test_ln_residual_without_droppath_scales_keeps_the_residual_whole(rng):
     """dp None (inference) is dp = 1 for every image, bit for bit."""
     z, res = (torch.from_numpy(rng.normal(size=(8, 16)).astype(np.float32)) for _ in range(2))

@@ -9,11 +9,13 @@ test whether a card is present and skips otherwise. Run them on the card:
 (``--noconftest``: tests/conftest.py sets up JAX, which the card's machine
 need not have.) The per-kernel cases run ``chip_smoke.kernel_checks``,
 ``chip_smoke.bwd_kernel_checks``, ``chip_smoke.window_attention_checks`` and
-``chip_smoke.attention_checks`` and ``chip_smoke.bwd_edge_checks``, the checks
+``chip_smoke.attention_checks``, ``chip_smoke.bwd_edge_checks`` and
+``chip_smoke.gemm_edge_checks``, the checks
 ``chip_smoke.py`` makes, at the Swin-B-256 block geometries (the two attention
 forward kernels and the attention backward also at the ws 4 geometries of
 ``chip_smoke.SMALL_GEOMS`` and with a query row's whole bias at -100;
-gemm_wgrad also at ``chip_smoke.WGRAD_EDGE_SHAPES``) and the batches of
+gemm_wgrad also at ``chip_smoke.WGRAD_EDGE_SHAPES``, gemm_bias_act and
+gemm_dgrad at ``chip_smoke.GEMM_EDGE_SHAPES``) and the batches of
 ``chip_smoke.CHECK_BATCHES`` (so also marked ``slow``) with its stated
 tolerances (``chip_smoke.TOL``); the overlap probe's case runs
 ``chip_smoke.check_probe`` at the probe's own shapes (``chip_smoke.PROBE_TOL``).
@@ -99,9 +101,30 @@ def test_backward_kernels_beyond_the_block_geometries(dname):
 
 @pytest.mark.gpu
 @pytest.mark.slow
-def test_backward_kernels_are_bit_identical_over_two_launches():
+@pytest.mark.parametrize("dname", ["bf16", "f32"])
+def test_gemms_beyond_the_block_geometries(dname):
+    """gemm_bias_act and gemm_dgrad at M off their 64- and 128-row tiles and
+    K, N 8 more than a multiple of 64 or 128, every activation, epilogue,
+    aux and output dtype."""
     _need_card()
-    assert chip_smoke.check_bit_identical(torch, fb) == 5 * len(chip_smoke.GEOMS)
+    fb.reset_launch_counts()
+    results = chip_smoke.gemm_edge_checks(torch, fb, dname)
+    bad = [r for r in results if not r[3] <= r[4]]
+    assert not bad, bad
+    counts = fb.launch_counts()
+    n = len(chip_smoke.GEMM_EDGE_SHAPES)
+    outs = 2 if dname == "bf16" else 1
+    assert counts["gemm_bias_act"] == n * 2 * outs
+    assert counts["gemm_dgrad"] == n * (2 + outs) * outs
+
+
+@pytest.mark.gpu
+@pytest.mark.slow
+def test_backward_kernels_are_bit_identical_over_two_launches():
+    """gemm_wgrad (four shapes), gemm_bias_act (four), gemm_dgrad (four) and
+    the attention backward at every block geometry."""
+    _need_card()
+    assert chip_smoke.check_bit_identical(torch, fb) == 13 * len(chip_smoke.GEOMS)
 
 
 @pytest.mark.gpu
@@ -113,6 +136,10 @@ def test_kernels_refuse_what_they_do_not_take():
         fb.gemm_bias_act(a, w, torch.zeros(20, device="cuda", dtype=torch.bfloat16))
     with pytest.raises(ValueError):  # one tensor on the CPU
         fb.gemm_bias_act(a, w[:, :16].contiguous(), torch.zeros(16, dtype=torch.bfloat16))
+    a16 = torch.randn(64 * 32 + 1, device="cuda").to(torch.bfloat16)[1:].view(64, 32)
+    with pytest.raises(ValueError):  # bf16 not 16-byte aligned
+        fb.gemm_bias_act(a16, w[:, :16].contiguous(),
+                         torch.zeros(16, device="cuda", dtype=torch.bfloat16))
     qkv = torch.randn(1, 8, 8, 3 * 64, device="cuda")  # head_dim 16
     with pytest.raises(ValueError):
         fb.window_attention(qkv, torch.zeros(4, 64, 64, device="cuda"),
@@ -131,6 +158,9 @@ def test_backward_kernels_refuse_what_they_do_not_take():
     w = torch.randn(32, 20, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         fb.gemm_dgrad(dy, w)
+    dy16 = torch.randn(64 * 16 + 1, device="cuda")[1:].view(64, 16)
+    with pytest.raises(ValueError):  # not 16-byte aligned
+        fb.gemm_dgrad(dy16, w[:, :16].contiguous())
     with pytest.raises(ValueError):  # the grad must be f32
         fb.gemm_wgrad(torch.randn(64, 32, device="cuda", dtype=torch.bfloat16),
                       torch.randn(64, 16, device="cuda", dtype=torch.bfloat16))

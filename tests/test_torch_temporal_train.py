@@ -16,23 +16,37 @@ there, and where the noise is larger, why:
 * grads, grad_norm and the BatchNorm running statistics are held against
   JAX's float64 step (the same step under ``jax.enable_x64``, the packages'
   f32 casts in LayerNorm, BatchNorm and softmax kept): the port may miss
-  each by twice the larger of JAX's own f32 miss and the spatial step's
-  tolerance (grads 1e-4 of the leaf's largest magnitude plus 1e-6 of the
-  clip norm 5; grad_norm 5e-5 relative; statistics 1e-5 plus 1e-5 of the
-  leaf's largest value). The temporal encoders train on the frozen stack's
-  output, and their random-weight attention (sqrt(d_h)-multiplied, nearly
-  hard; in the realtime case over one query token per sample, with
-  BatchNorm statistics over the B last-frame tokens) amplifies f32
-  sum-order noise in the backward, JAX's as much as the port's: for
-  grad_norm (realtime, the test's seed 23) JAX's f32 step lies 3.1e-5 and
-  the port's 8.9e-6 relative from the float64 value. Over seeds 23, 5 and
-  6 of this file's inputs in both cases, the port's misses took at most
-  0.78 (grads), 0.55 (grad_norm) and 0.86 (statistics) of their
-  allowances; at seed 23, 0.39 / 0.089 / 0.55 (realtime) and 0.21 /
-  0.0048 / 0.25 (full).
+  each by twice the larger of JAX's own f32 miss and a floor: grads
+  GRAD_FLOOR (1e-4, the spatial step's) of the leaf's largest magnitude
+  plus 1e-6 of the clip norm 5; grad_norm 5e-5 relative; statistics 1e-5
+  plus STAT_FLOOR (1e-5) of the leaf's largest value. The temporal encoders
+  train on the frozen stack's output, and their random-weight attention
+  (sqrt(d_h)-multiplied, nearly hard; in the realtime case over one query
+  token per sample, with BatchNorm statistics over the B last-frame tokens)
+  amplifies f32 sum-order noise in the backward, JAX's as much as the
+  port's: for grad_norm (realtime, the test's seed 23) JAX's f32 step lies
+  3.1e-5 and the port's 8.9e-6 relative from the float64 value. Over seeds
+  23, 5 and 6 of this file's inputs in the full case, the port's misses
+  took at most 0.78 (grads), 0.55 (grad_norm) and 0.86 (statistics) of
+  their allowances; at seed 23, 0.21 / 0.0048 / 0.25.
+* The realtime case alone gives larger floors to the leaves on either side
+  of its cross attention's softmax: SOFTMAX_GRAD_FLOOR to the grads of the
+  query and key projections and of the norm before the query
+  (SOFTMAX_GRAD_LEAVES), which reach them through the softmax's Jacobian,
+  and SOFTMAX_STAT_FLOOR to the statistics of the norm after it
+  (SOFTMAX_STAT_LEAVES), taken over the B=4 last-frame tokens the softmax
+  mixes. Both are JAX's own f32 misses there, as fractions of the leaf's
+  scale, read by tests/test_torch_temporal_noise.py (slow; its docstring
+  has the readings): the grads' floor is JAX's largest miss over six seeds
+  of this file's inputs (1.915e-3, seed 8), the statistics' its largest
+  miss with its parameters and inputs moved by one ulp (2.382e-4, seed 9;
+  unmoved, JAX's statistics miss by at most 2.6e-5 and the port's by
+  7.4e-5). Every other realtime leaf keeps the spatial floors, and the
+  reader holds the port within them at all six seeds.
 """
 
 import copy
+import re
 
 import jax
 import jax.numpy as jnp
@@ -58,7 +72,30 @@ from .test_torch_poser import _port_tiny
 
 LR = 1e-3
 CASES = {"realtime": 3, "full": 5}
+# the floors of the grads' and the BatchNorm statistics' allowances, as
+# fractions of the leaf's scale (see the module docstring): the spatial
+# step's, and in the realtime case larger ones on either side of the
+# softmax: the grads of its query and key and of the norm before them, the
+# statistics of the norm after it
+GRAD_FLOOR, STAT_FLOOR = 1e-4, 1e-5
+SOFTMAX_GRAD_FLOOR, SOFTMAX_STAT_FLOOR = 1.92e-3, 2.39e-4
+SOFTMAX_GRAD_LEAVES = re.compile(r"\.layers\.\d+\.(norm1|cross_atten\.(query|key))\.")
+SOFTMAX_STAT_LEAVES = re.compile(r"\.layers\.\d+\.norm2\.running_(mean|var)$")
 TEMPORAL = ("pose_temporal_encoder", "shape_temporal_encoder", "root_temporal_encoder")
+
+
+def grad_atol(sup: str, name: str, jax_miss: float, g64: np.ndarray) -> float:
+    """What the port's grad of leaf `name` may miss JAX's float64 grad by."""
+    softmax = sup == "realtime" and SOFTMAX_GRAD_LEAVES.search(name)
+    floor = SOFTMAX_GRAD_FLOOR if softmax else GRAD_FLOOR
+    return 2 * max(jax_miss, floor * float(np.abs(g64).max()) + 1e-6 * 5.0)
+
+
+def stat_atol(sup: str, name: str, jax_miss: float, want64: np.ndarray) -> float:
+    """What the port's running statistic `name` may miss JAX's float64 one by."""
+    softmax = sup == "realtime" and SOFTMAX_STAT_LEAVES.search(name)
+    floor = SOFTMAX_STAT_FLOOR if softmax else STAT_FLOOR
+    return 2 * max(jax_miss, 1e-5 + floor * float(np.abs(want64).max()))
 
 
 def _np(tree):
@@ -165,7 +202,7 @@ def test_temporal_step_matches_jax(jax_temporal_step):
     trained = {n for n, _ in phase_trainable_params(model, "temporal")}
     assert trained == {n for n in params if n.startswith(TEMPORAL)}
     # float64 truth; each allowance is twice the larger of JAX's own f32 miss
-    # and the spatial step's tolerance
+    # and a floor
     norm64 = float(np.sqrt(sum((sd_grads64[n] ** 2).sum() for n in trained)))
     allowed = 2 * max(abs(js["grad_norm"] - norm64), 5e-5 * norm64)
     assert abs(float(metrics["grad_norm"]) - norm64) <= allowed
@@ -173,7 +210,7 @@ def test_temporal_step_matches_jax(jax_temporal_step):
     for n in trained:
         g_jax, g64 = sd_grads[n] * clip, sd_grads64[n] * clip64
         jax_miss = float(np.abs(g_jax - g64).max())
-        atol = 2 * max(jax_miss, 1e-4 * float(np.abs(g64).max()) + 1e-6 * 5.0)
+        atol = grad_atol(js["sup"], n, jax_miss, g64)
         np.testing.assert_allclose(params[n].grad.numpy(), g64, rtol=0, atol=atol, err_msg=n)
         p, want = params[n].detach().numpy(), sd_new[n]
         sensitive = np.abs(g_jax) < 10 * atol
@@ -188,7 +225,7 @@ def test_temporal_step_matches_jax(jax_temporal_step):
             if n.startswith(TEMPORAL):
                 want64 = sd_stats64[n]
                 jax_miss = float(np.abs(sd_new[n] - want64).max())
-                atol = 2 * max(jax_miss, 1e-5 + 1e-5 * float(np.abs(want64).max()))
+                atol = stat_atol(js["sup"], n, jax_miss, want64)
                 assert np.abs(b.numpy() - want64).max() <= atol, n
             else:
                 assert torch.equal(b, before[n]) and np.array_equal(b.numpy(), sd_new[n]), n
