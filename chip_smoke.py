@@ -43,15 +43,28 @@ order, failing (non-zero exit, no result line) at the first phase that fails:
    TRAIN_STEPS bf16 steps on one batch whose loss must fall, with the
    launch counts of one step and the step time; a NaN batch that must leave
    the state bit-identical; a profiled step (device idle share);
-7. trains it in the temporal phase at batch 8, realtime T=3 and full T=5 on
+7. runs the released spenc_addpat configuration (SPENC_CONFIG: encoder-type
+   spatial layers, patch decoration, a latent group of two layers) at full
+   width: its latent-2x spatial step at b8 (kernel path vs eager path in
+   f32 and bf16 with the same droppath and latent draws, SPENC_STEPS bf16
+   steps whose loss must fall, the launches of one step equal to the
+   flagship step's, the latent group bit-identical afterwards, the encoder
+   layers before the last moved by AdamW's decay alone, a profiled step);
+   serves those weights through ``PoserSession.from_experiment`` from a
+   checkpoint carrying the ``latent_trans.*`` keys, with
+   ``num_latent_layer`` null in the config as evaluation writes it (b1 and
+   b8: launches, outputs, kernel path vs eager path, latency, a profiled
+   forward); and serves one forward of the sparse + patch + orientation
+   variant, kernel path vs eager path from calibrated BatchNorm statistics;
+8. trains it in the temporal phase at batch 8, realtime T=3 and full T=5 on
    the attention-only kernel: the f32 backbone tokens and the f32 step
    against the eager path,
    TEMPORAL_STEPS bf16 steps whose loss must fall, every frozen parameter
    and statistic bit-identical afterwards, no saved backbone activations,
    the NaN skip;
-8. runs the tensor-core/SFU overlap probe's kernel against its plain version
+9. runs the tensor-core/SFU overlap probe's kernel against its plain version
    in its three modes, then its entry point (``tools.probe_overlap``);
-9. times every kernel at its path's shapes (batch 8) beside its plain
+10. times every kernel at its path's shapes (batch 8) beside its plain
    version, one library call and its bound (CUDA events around calls as the
    host issues them, ``cuda_ms``), the two window-attention forward
    kernels, the attention backward, the three GEMMs and their library calls
@@ -59,7 +72,7 @@ order, failing (non-zero exit, no result line) at the first phase that fails:
    flagged where the host still fell behind), the attention backward's
    scratch bytes per call and ``gemm_wgrad``'s split-partial bytes per step,
    and the serve latencies;
-10. prints each kernel's kernel / library factor, then ``{"kernels": [...]}``,
+11. prints each kernel's kernel / library factor, then ``{"kernels": [...]}``,
     then ``{"ok": true, "device": {...}}`` as the last line.
 
 Each phase prints its wall seconds. It imports nothing of JAX or of
@@ -180,6 +193,22 @@ CALIBRATION_FORWARDS = 30
 # saves in one step stays under this many bytes (the temporal encoders' and
 # heads' own, a few MB; the spatial step's backbone saves about 2 GB)
 TEMPORAL_SAVED_MAX = 64 * 2**20
+# the released reference configuration, spatial_dexycb_swinb_spenc_addpat_noti
+# (SURVEY.md:14), as tools/full_scale_convert_check.py:115-121 writes its
+# config.json (with BACKBONE and IMG): encoder-type spatial layers, patch
+# decoration, a latent group of two layers, realtime temporal encoders. Its
+# spatial phase trains SPENC_STEPS bf16 steps (latent 2x) on one batch, whose
+# loss must fall as TRAIN_FALL says.
+SPENC_CONFIG = {"exp": "chip_smoke_spenc", "num_joints": 16,
+                "num_spatial_layer": 6, "spatial_layer_type": "encoder",
+                "num_temporal_layer": 2, "num_latent_layer": 2,
+                "persp_decorate": "patch", "temporal_supervision": "realtime",
+                "phase": "spatial", "data": "dexycb", "seq_len": 1, "batch_size": 8}
+SPENC_STEPS = 30
+# the encoder-type spatial layers before the last get no gradient: AdamW moves
+# them by its decay alone, p * (1 - lr * wd) a step, to this relative error
+# (f32 rounding, one multiply a step)
+DECAY_RTOL = 1e-5
 # probe kernel vs plain: bf16 acc to 2e-2 of its scale (eight products, each
 # rounded to bf16; a sum in another order flips a rounding by one ulp and
 # later products carry it), f32 vec to 1e-5 relative per element (__expf on
@@ -777,7 +806,7 @@ def queued(torch, r, n_blocks, kernel, library, what):
 
 
 def time_kernels(torch, fb, F, B=8):
-    """Phase 9: per-forward totals at batch B, bf16, summed over the 24 blocks;
+    """Phase 10: per-forward totals at batch B, bf16, summed over the 24 blocks;
     gemm_bias_act and swin_window_attn_fwd and their library calls also
     queued (queued_ms)."""
     bf = torch.bfloat16
@@ -864,16 +893,10 @@ def time_kernels(torch, fb, F, B=8):
     return tot
 
 
-def serve(torch, fb):
-    """Phase 4: the flagship model through PoserSession, b1 and b8."""
+def crop_requests(rng):
+    """A function N -> one T=1 request of N crops (predict_crops' arguments),
+    drawn from `rng`."""
     import numpy as np
-
-    from cs_vit_tpu_torch.config import FinetuneConfig
-    from cs_vit_tpu_torch.serving import PoserSession
-
-    cfg = FinetuneConfig(exp="chip_smoke", backbone=BACKBONE, img_size=IMG,
-                         phase="inference", attention_impl="auto")
-    rng = np.random.default_rng(0)
 
     def request(N):
         S = IMG
@@ -887,6 +910,43 @@ def serve(torch, fb):
             rng.uniform(500, 700, size=(N, 1, 2)).astype(np.float32),
             rng.uniform(200, 320, size=(N, 1, 2)).astype(np.float32),
         )
+
+    return request
+
+
+def serve_expect(depth):
+    """Launches of each forward kernel in one T=1 forward on the whole-block
+    path, by counter name."""
+    return {"fused_swin_block": depth, "window_attention": depth,
+            "gemm_bias_act": 4 * depth, "ln_residual": 2 * depth}
+
+
+def check_serve_launches(tag, counts, forwards, depth):
+    for name, per in serve_expect(depth).items():
+        if counts[name] != per * forwards:
+            fail(f"{tag}: {name}: {counts[name]} launches for {forwards} forwards, "
+                 f"expected {per} per forward")
+
+
+def train_expect(depth):
+    """Launches of each kernel in one spatial train step on the whole-block
+    path (the backbone at B)."""
+    return {"FusedSwinBlock": depth, "gemm_dgrad": 4 * depth, "gemm_wgrad": 4 * depth,
+            "ln_residual_bwd": 2 * depth, "window_attention_bwd": depth,
+            "fused_swin_block": depth, "gemm_bias_act": 5 * depth,
+            "ln_residual": 2 * depth, "window_attention": depth}
+
+
+def serve(torch, fb):
+    """Phase 4: the flagship model through PoserSession, b1 and b8."""
+    import numpy as np
+
+    from cs_vit_tpu_torch.config import FinetuneConfig
+    from cs_vit_tpu_torch.serving import PoserSession
+
+    cfg = FinetuneConfig(exp="chip_smoke", backbone=BACKBONE, img_size=IMG,
+                         phase="inference", attention_impl="auto")
+    request = crop_requests(np.random.default_rng(0))
 
     t0 = time.perf_counter()
     s8 = PoserSession(cfg, batch_size=8, dtype="bfloat16", device=DEV)
@@ -903,15 +963,7 @@ def serve(torch, fb):
     sync(torch)
     counts = fb.launch_counts()
     print(f"serve: {forwards} forwards, launches {json.dumps(counts)}")
-    depth = sum(s8.model.backbone.config.depths)
-    expect = {"fused_swin_block": depth, "swin_window_attn_fwd": depth,
-              "gemm_bias_act": 4 * depth, "ln_residual": 2 * depth}
-    fwd_name = {"fused_swin_block": "fused_swin_block", "swin_window_attn_fwd": "window_attention",
-                "gemm_bias_act": "gemm_bias_act", "ln_residual": "ln_residual"}
-    for name, per in expect.items():
-        if counts[fwd_name[name]] != per * forwards:
-            fail(f"{name}: {counts[fwd_name[name]]} launches for {forwards} forwards, "
-                 f"expected {per} per forward")
+    check_serve_launches("serve", counts, forwards, sum(s8.model.backbone.config.depths))
     for (s, r), out in zip(requests, outs):
         N = r[0].shape[0]
         jc = out["joint_cam"]
@@ -930,14 +982,25 @@ def serve(torch, fb):
     return s1, s8, request, counts, forwards
 
 
-def compare_paths(torch, tag, sessions, impl, req, bf16_tokens):
+def compare_paths(torch, tag, sessions, impl, req, bf16_tokens, bf16_witness=False):
     """The served model on the backbone path `impl` against the eager path,
     on the card, same weights and inputs: f32 backbone tokens within
     SERVE_TOKEN_TOL (bf16 tokens too when `bf16_tokens`; the bf16 flows of
     the eager path and of an attention-only kernel path differ by design, so
     those are printed only), joint_cam within twice each dtype's noise
     floor plus SERVE_MM_SLACK (see there). `sessions` maps "bf16" and "f32"
-    to sessions of one config; each is left on `impl`."""
+    to sessions of one config; each is left on `impl`.
+
+    `bf16_witness`, for trained-like weights (the spenc phase serves the
+    weights its steps trained): the heads no longer amplify, and the bf16
+    eager path, promoted to f32 after its first block, sits far closer to
+    the f32 eager path than the bf16 kernel path's own rounding allows (on
+    an H100: 0.197 mm against 1.764 mm of a 437.6 mm joint_cam, 0.4%, a
+    bf16 ulp). The bf16 floor is then at least what the f32 one is made
+    of: the largest joint_cam shift of the bf16 eager session when its
+    tokens carry the bf16 kernel path's own token difference with its
+    entries permuted, rounded to bf16 so that its heads run in bf16 as on
+    the kernel path (WITNESSES draws)."""
     import numpy as np
 
     jc, tokens = {}, {}
@@ -970,13 +1033,13 @@ def compare_paths(torch, tag, sessions, impl, req, bf16_tokens):
         def forward(self, x, generator=None):
             return self.t
 
-    def head_mm(t):
-        backbone, eager32.model.backbone = eager32.model.backbone, FixedTokens(t)
+    def head_mm(t, sess=eager32, dname="f32"):
+        backbone, sess.model.backbone = sess.model.backbone, FixedTokens(t)
         try:
-            return float(np.abs(eager32.predict_crops(*req)["joint_cam"]
-                                - jc["f32", "eager"]).max())
+            return float(np.abs(sess.predict_crops(*req)["joint_cam"]
+                                - jc[dname, "eager"]).max())
         finally:
-            eager32.model.backbone = backbone
+            sess.model.backbone = backbone
 
     base = tokens["f32", "eager"]
     delta = (tokens["f32", impl] - base).flatten()
@@ -989,8 +1052,19 @@ def compare_paths(torch, tag, sessions, impl, req, bf16_tokens):
           f"path's own {head_mm(base):.4f} mm")
     floor = {"f32": max(shifts),
              "bf16": float(np.abs(jc["bf16", "eager"] - jc["f32", "eager"]).max())}
-    print(f"{tag}: joint_cam noise floor f32 {floor['f32']:.4f} mm, bf16 (|eager bf16 - "
-          f"eager f32|) {floor['bf16']:.4f} mm; max|joint_cam| = "
+    floor_how = "|eager bf16 - eager f32|"
+    if bf16_witness:
+        base = tokens["bf16", "eager"].float()
+        delta = (tokens["bf16", impl].float() - base).flatten()
+        shifts = [head_mm((base + delta[torch.randperm(delta.numel(), generator=gen).to(DEV)]
+                           .reshape(base.shape)).to(torch.bfloat16), sessions["bf16"], "bf16")
+                  for _ in range(WITNESSES)]
+        print(f"{tag}: bf16 head on bf16 eager tokens + permuted kernel-path token difference, "
+              f"rounded to bf16: joint_cam moves {', '.join(f'{v:.4f}' for v in shifts)} mm")
+        floor_how += f" {floor['bf16']:.4f} mm or the largest bf16 witness"
+        floor["bf16"] = max(floor["bf16"], max(shifts))
+    print(f"{tag}: joint_cam noise floor f32 {floor['f32']:.4f} mm, bf16 ({floor_how}) "
+          f"{floor['bf16']:.4f} mm; max|joint_cam| = "
           f"{float(np.abs(jc['f32', 'eager']).max()):.1f} mm")
     for dname in ("f32", "bf16"):
         err = float(np.abs(jc[dname, impl] - jc[dname, "eager"]).max())
@@ -1168,38 +1242,51 @@ def check_train(torch, fb, model, B=8):
         fail(f"backbone grad {rows[0][1]} of the kernel path disagrees with the eager path "
              f"(rel {rows[0][0]:.3e} > {TRAIN_GRAD_TOL:.0e})")
     del grads
+    check_step(torch, model, B)
 
-    # (2) the whole step, f32 and bf16: kernel path vs eager path
+
+def latent_generator(torch, seed):
+    """The latent group's generator, on the card (None off a latent path)."""
+    return torch.Generator(device=DEV).manual_seed(seed)
+
+
+def check_step(torch, model, B, tag="train", latent=False):
+    """The whole spatial step, f32 and bf16: kernel path vs eager path from
+    the same weights, batch, droppath draws and (`latent`) latent draws;
+    the f32 step within TRAIN_F32_TOL, the bf16 step within twice the eager
+    bf16 path's distance from the f32 eager step plus TRAIN_BF16_SLACK."""
     batch = train_batch(torch, B, seed=4)
     res = {}
     for impl in ("fused", "eager"):
         for dname, cdt in (("f32", None), ("bf16", torch.bfloat16)):
             m = with_impl(model, impl)
             state, step = new_step(torch, m, cdt)
-            state, met = step(state, batch, torch.Generator(device=DEV).manual_seed(5))
+            state, met = step(state, batch, torch.Generator(device=DEV).manual_seed(5),
+                              latent_generator(torch, 9) if latent else None)
             res[impl, dname] = (float(met["loss"]), float(met["grad_norm"]))
             if state.step != 1 or not all(math.isfinite(v) for v in res[impl, dname]):
-                fail(f"{impl} {dname} step: step {state.step}, loss/grad_norm {res[impl, dname]}")
-            print(f"train: {impl} {dname} step: loss {res[impl, dname][0]:.6f} "
+                fail(f"{tag}: {impl} {dname} step: step {state.step}, loss/grad_norm "
+                     f"{res[impl, dname]}")
+            print(f"{tag}: {impl} {dname} step: loss {res[impl, dname][0]:.6f} "
                   f"grad_norm {res[impl, dname][1]:.6f}")
             del m, state, step
     for i, what in enumerate(("loss", "grad_norm")):
         truth = res["eager", "f32"][i]
         err = abs(res["fused", "f32"][i] - truth)
         ok = err <= TRAIN_F32_TOL * abs(truth)
-        print(f"train: f32 {what} kernel path vs eager path: |diff| {err:.6f} "
+        print(f"{tag}: f32 {what} kernel path vs eager path: |diff| {err:.6f} "
               f"(rel {err / abs(truth):.3e}, tol {TRAIN_F32_TOL:.0e}) {'ok' if ok else 'FAIL'}")
         if not ok:
-            fail(f"f32 step {what} of the kernel path disagrees with the eager path")
+            fail(f"{tag}: f32 step {what} of the kernel path disagrees with the eager path")
         floor = abs(res["eager", "bf16"][i] - truth)
         err = abs(res["fused", "bf16"][i] - truth)
         tol = 2 * floor + TRAIN_BF16_SLACK * abs(truth)
         ok = err <= tol
-        print(f"train: bf16 {what}: kernel path's distance from the f32 eager step {err:.6f}, "
+        print(f"{tag}: bf16 {what}: kernel path's distance from the f32 eager step {err:.6f}, "
               f"eager bf16 path's {floor:.6f}, tol {tol:.6f} {'ok' if ok else 'FAIL'}")
         if not ok:
-            fail(f"bf16 step {what} of the kernel path is further from the f32 step than "
-                 "the eager bf16 path allows")
+            fail(f"{tag}: bf16 step {what} of the kernel path is further from the f32 step "
+                 "than the eager bf16 path allows")
 
 
 def check_nan_skip(torch, state, step, batch):
@@ -1226,9 +1313,10 @@ def check_nan_skip(torch, state, step, batch):
         fail("a NaN batch changed the train state")
 
 
-def train_curve(torch, fb, state, step, batch, n, tag="train"):
-    """n bf16 steps on one fixed batch, with the same droppath draws in every
-    step (one fixed objective); the loss must fall. Returns the step times
+def train_curve(torch, fb, state, step, batch, n, tag="train", latent=False):
+    """n bf16 steps on one fixed batch, with the same droppath draws (and,
+    `latent`, the same latent draws) in every step (one fixed objective);
+    the loss must fall. Returns the step times
     (ms), the launch counts of the last step (`fb`: anything with
     ``reset_launch_counts``/``launch_counts``) and the device memory that
     step holds above what stays resident (weights, AdamW state), in bytes
@@ -1243,8 +1331,9 @@ def train_curve(torch, fb, state, step, batch, n, tag="train"):
             if DEV == "cuda":
                 resident = torch.cuda.memory_allocated()
                 torch.cuda.reset_peak_memory_stats()
+        lgen = latent_generator(torch, 9) if latent else None
         t0 = time.perf_counter()
-        state, met = step(state, batch, gen)
+        state, met = step(state, batch, gen, lgen)
         sync(torch)
         times.append((time.perf_counter() - t0) * 1e3)
         if i == n - 1:
@@ -1260,6 +1349,141 @@ def train_curve(torch, fb, state, step, batch, n, tag="train"):
         fail(f"{tag}: the loss did not fall: first three {first:.4f}, last three {last:.4f}")
     print(f"{tag}: mean loss of the first three steps {first:.4f}, of the last three {last:.4f}")
     return times, counts, peak
+
+
+def spenc(torch, fb):
+    """Phase 7: the released spenc_addpat configuration (SPENC_CONFIG) at full
+    width, seeded random weights, on the "auto" path: (a) the latent-2x
+    spatial step at b8 (kernel path vs eager path, SPENC_STEPS bf16 steps
+    whose loss must fall, the launches of one step against the flagship
+    step's, the latent group bit-identical, the encoder layers before the
+    last moved by AdamW's decay alone, a profiled step); (b) serving the
+    trained weights through PoserSession.from_experiment from a checkpoint
+    that carries the latent group's keys, with num_latent_layer null in the
+    config as evaluation writes it (b1 and b8, bf16 and f32, kernel path vs
+    eager path, launches, latency, a profiled forward); (c) one served
+    forward of the sparse + patch + orientation variant, kernel path vs
+    eager path from calibrated BatchNorm statistics."""
+    import os.path as osp
+    import tempfile
+
+    import numpy as np
+
+    from cs_vit_tpu_torch.cli.common import build_model
+    from cs_vit_tpu_torch.config import FinetuneConfig
+    from cs_vit_tpu_torch.models import init_poser_weights
+    from cs_vit_tpu_torch.serving import PoserSession
+
+    layout = dict(SPENC_CONFIG, backbone=BACKBONE, img_size=IMG)
+    cfg = FinetuneConfig(**layout)
+    model = build_model(cfg)
+    init_poser_weights(model, 11)
+    model = model.to(DEV)
+    depth = sum(model.backbone.config.depths)
+    check_step(torch, model, 8, "spenc", latent=True)
+
+    # (a) the latent-2x spatial step
+    batch = train_batch(torch, 8, seed=12)
+    latent0 = {k: v.clone() for k, v in model.state_dict().items()
+               if k.startswith("latent_trans.")}
+    early = tuple(f"spatial_encoder.layers.{i}." for i in range(cfg.num_spatial_layer - 1))
+    early0 = {n: p.detach().clone() for n, p in model.named_parameters() if n.startswith(early)}
+    state, step = new_step(torch, model, torch.bfloat16)
+    print(f"spenc: AdamW lr {TRAIN_LR} (constant), {SPENC_STEPS} bf16 steps on one batch of 8, "
+          f"the latent group doubling the rows after the backbone")
+    times, counts, _ = train_curve(torch, fb, state, step, batch, SPENC_STEPS, "spenc",
+                                   latent=True)
+    print(f"spenc: launches in one step {json.dumps(counts)}")
+    if DEV == "cuda":
+        for name, per in train_expect(depth).items():
+            if counts[name] != per:
+                fail(f"spenc: {name}: {counts[name]} launches in one step, expected {per} "
+                     "(the flagship step's: the backbone runs once, at B)")
+    changed = [k for k, v in model.state_dict().items()
+               if k in latent0 and not torch.equal(v, latent0[k])]
+    print(f"spenc: {len(latent0)} latent_trans parameters and statistics bit-identical after "
+          f"{state.step} steps: {not changed}")
+    if changed or not latent0:
+        fail(f"spenc: the latent group changed: {changed[:5]}")
+    decay = (1 - TRAIN_LR * state.optimizer.param_groups[0]["weight_decay"]) ** state.step
+    worst, still = 0.0, []
+    for n, p0 in early0.items():
+        p = dict(model.named_parameters())[n].detach()
+        worst = max(worst, rel_err(p, p0 * decay)[1])
+        if torch.equal(p, p0) and bool(p0.any()):
+            still.append(n)
+    print(f"spenc: {len(early0)} parameters of encoder layers 0..{cfg.num_spatial_layer - 2} "
+          f"against p0 * {decay:.8f} (decay alone over {state.step} steps): worst rel "
+          f"{worst:.3e}, tol {DECAY_RTOL:.0e}; unmoved: {len(still)}")
+    if not early0 or worst > DECAY_RTOL or still:
+        fail("spenc: the encoder layers without gradient moved otherwise than by decay")
+    step_ms = statistics.median(times[3:])
+    print(f"train_spenc_step_ms_b8 {step_ms:.3f} (min {min(times[3:]):.3f}, "
+          f"{len(times) - 3} steps after 3 of warm-up)")
+    profile_step(torch, state, step, batch, step_ms, tag="profile spenc step", latent=True)
+    del state, step, batch
+
+    # (b) serving the trained weights from an experiment directory
+    request = crop_requests(np.random.default_rng(3))
+    with tempfile.TemporaryDirectory() as exp:
+        with open(osp.join(exp, "config.json"), "w") as f:
+            json.dump(dict(layout, num_latent_layer=None), f)
+        sd = {k: v.cpu() for k, v in model.state_dict().items()}
+        torch.save({"epoch": 0, "model": sd, "merged": sd}, osp.join(exp, "checkpoint.pt"))
+        n_latent = sum(k.startswith("latent_trans.") for k in sd)
+        print(f"spenc: checkpoint of {len(sd)} tensors, {n_latent} of them latent_trans.*")
+        s8 = PoserSession.from_experiment(exp, batch_size=8, dtype="bfloat16", device=DEV)
+        s1 = PoserSession.from_experiment(exp, batch_size=1, dtype="bfloat16", device=DEV)
+        f32 = PoserSession.from_experiment(exp, batch_size=8, dtype="float32", device=DEV)
+    served = f32.model.state_dict()
+    differ = [k for k, v in sd.items() if not k.startswith("latent_trans.")
+              and not torch.equal(served[k].cpu(), v)]
+    if f32.model.latent_trans is not None or differ:
+        fail(f"spenc: the served model is not the trained one without its latent group: "
+             f"{differ[:5]}")
+    del model, sd
+    for sess in (s8, s1):
+        sess.warmup()
+    sync(torch)
+    requests = [(s8, request(8)), (s8, request(11)), (s1, request(3))]
+    forwards = sum(math.ceil(r[0].shape[0] / s.batch_size) for s, r in requests)
+    fb.reset_launch_counts()
+    outs = [s.predict_crops(*r) for s, r in requests]
+    sync(torch)
+    served_counts = fb.launch_counts()
+    print(f"serve_spenc: {forwards} forwards, launches {json.dumps(served_counts)}")
+    if DEV == "cuda":
+        check_serve_launches("serve_spenc", served_counts, forwards, depth)
+    for (s, r), out in zip(requests, outs):
+        N = r[0].shape[0]
+        for key, tail in (("joint_cam", (21, 3)), ("verts_cam", (778, 3))):
+            if out[key].shape != (N, 1) + tail or not np.isfinite(out[key]).all():
+                fail(f"serve_spenc: {key} has shape {out[key].shape} or non-finite values")
+    print("serve_spenc: joint_cam finite, shapes [N,1,21,3] for N = 8, 11 (padded), 3 (b1)")
+    compare_paths(torch, "serve_spenc", {"bf16": s8, "f32": f32}, "fused", request(8),
+                  bf16_tokens=True, bf16_witness=True)
+    del f32
+    lat = serve_latency(torch, s1, s8, request)
+    print(f"serve_spenc_b1_ms {lat['b1']:.3f} (min {lat['b1_min']:.3f})")
+    print(f"serve_spenc_b8_ms {lat['b8']:.3f} (min {lat['b8_min']:.3f})")
+    if DEV == "cuda":
+        profile_forward(torch, s8, request, lat["b8"], tag="profile_spenc")
+    del s1, s8
+
+    # (c) the sparse + patch + orientation variant, one forward per path
+    variant = FinetuneConfig(exp="chip_smoke_sparse", backbone=BACKBONE, img_size=IMG,
+                             phase="inference", persp_embed_method="sparse",
+                             persp_decorate="patch", global_positioning="orientation")
+    sessions = {"bf16": PoserSession(variant, batch_size=8, dtype="bfloat16", device=DEV),
+                "f32": PoserSession(variant, batch_size=8, dtype="float32", device=DEV)}
+    # from calibrated BatchNorm statistics (see CALIBRATION_FORWARDS), the
+    # same in both sessions
+    calibrate_statistics(torch, sessions["f32"].model, train_batch(torch, 8, seed=31))
+    sessions["bf16"].model.load_state_dict(
+        {k: v for k, v in sessions["f32"].model.state_dict().items()
+         if k.endswith(("running_mean", "running_var"))}, strict=False)
+    compare_paths(torch, "serve_sparse", sessions, "fused", request(8), bf16_tokens=True,
+                  bf16_witness=True)
 
 
 def temporal_batch(torch, B, T, seed):
@@ -1326,7 +1550,7 @@ def saved_bytes(torch, step, state, batch):
 
 
 def check_temporal(torch, launches, sup, T, B=8):
-    """Phase 7: the temporal step at batch B over T frames, only the temporal
+    """Phase 8: the temporal step at batch B over T frames, only the temporal
     encoders training, after calibrate_statistics: the f32 backbone tokens
     and the f32 step of the attention-kernel path against the eager path,
     then TEMPORAL_STEPS bf16 steps on one batch (the loss falls, the
@@ -1435,31 +1659,32 @@ def print_profile(tag, kernels, ops, n=12):
         print(f"{tag}: launched by {ms:9.3f} ms  x{count:4d}  {key[:80]}")
 
 
-def profile_step(torch, state, step, batch, median_ms):
+def profile_step(torch, state, step, batch, median_ms, tag="profile step", latent=False):
     """Device busy time and idle share of one bf16 b8 step (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
     gen = torch.Generator(device=DEV).manual_seed(8)
+    lgen = latent_generator(torch, 9) if latent else None
     sync(torch)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(state, batch, gen)
+        step(state, batch, gen, lgen)
         sync(torch)
         wall = (time.perf_counter() - t0) * 1e3
     busy, kernels, ops = device_profile(torch, prof)
     if busy == 0:
-        print("profile step: no device time recorded (not measured)")
+        print(f"{tag}: no device time recorded (not measured)")
         return None
     idle = max(0.0, 1 - busy / median_ms)
-    print(f"profile step: b8 step wall {wall:.3f} ms (profiled), device busy {busy:.3f} ms "
+    print(f"{tag}: b8 step wall {wall:.3f} ms (profiled), device busy {busy:.3f} ms "
           f"({sum(r[1] for r in kernels)} kernels), idle share against the unprofiled median "
           f"{median_ms:.3f} ms: {idle:.3f}")
-    print_profile("profile step", kernels, ops, n=16)
+    print_profile(tag, kernels, ops, n=16)
     return idle
 
 
 def time_bwd_kernels(torch, fb, F, B=8, iters=10):
-    """Phase 9: the backward kernels at a bf16 b8 step's shapes, per step
+    """Phase 10: the backward kernels at a bf16 b8 step's shapes, per step
     (summed over the 24 blocks), beside their plain versions, one library call
     each (yardsticks: torch.matmul, autograd of F.layer_norm and of SDPA with
     a float mask) and their bounds; gemm_dgrad, gemm_wgrad and
@@ -1618,7 +1843,7 @@ def time_window_attention(torch, wa, F, B=8, T=RT_T):
 
 
 def check_probe(torch, po):
-    """Phase 8: the probe kernel against its plain version in its three modes
+    """Phase 9: the probe kernel against its plain version in its three modes
     at the probe's own shapes; returns the worst max_abs."""
     from cs_vit_tpu_torch.tools.probe_overlap import make_inputs
 
@@ -1773,11 +1998,7 @@ def main() -> int:
         state, step = new_step(torch, model, torch.bfloat16)
         times, train_counts, spatial_peak = train_curve(torch, fb, state, step, batch, TRAIN_STEPS)
         check_nan_skip(torch, state, step, batch)
-        depth = sum(model.backbone.config.depths)
-        expect = {"FusedSwinBlock": depth, "gemm_dgrad": 4 * depth, "gemm_wgrad": 4 * depth,
-                  "ln_residual_bwd": 2 * depth, "window_attention_bwd": depth,
-                  "fused_swin_block": depth, "gemm_bias_act": 5 * depth,
-                  "ln_residual": 2 * depth, "window_attention": depth}
+        expect = train_expect(sum(model.backbone.config.depths))
         print(f"train: launches in one step {json.dumps(train_counts)}")
         for name, per in expect.items():
             if train_counts[name] != per:
@@ -1788,6 +2009,9 @@ def main() -> int:
         print(f"train_crops_per_s_b8 {8e3 / step_ms:.1f}")
         profile_step(torch, state, step, batch, step_ms)
         del model, state, step, batch
+
+    with phase("spenc"):
+        spenc(torch, fb)
 
     with phase("temporal"):
         temporal = {name: check_temporal(torch, launches, sup, T)

@@ -88,7 +88,8 @@ class MHA(nn.Module):
 
     ``compat_scale=True`` multiplies QK^T by sqrt(head_dim); ``False`` uses the
     standard 1/sqrt(head_dim). Softmax runs in f32 whatever the activation
-    dtype.
+    dtype. Queries and keys of two dtypes (bf16 queries over f32 patches)
+    meet in the promoted dtype, as in the JAX package.
     """
 
     def __init__(self, embed_dim: int, num_heads: int, compat_scale: bool = True):
@@ -110,7 +111,8 @@ class MHA(nn.Module):
         k = self.key(ctx).reshape(B, S, H, hd).transpose(1, 2)
         v = self.value(ctx).reshape(B, S, H, hd).transpose(1, 2)
         scale = math.sqrt(hd) if self.compat_scale else 1.0 / math.sqrt(hd)
-        scores = (q @ k.transpose(-1, -2)) * scale
+        dt = torch.promote_types(q.dtype, k.dtype)  # as jnp.einsum promotes
+        scores = (q.to(dt) @ k.to(dt).transpose(-1, -2)) * scale
         weights = torch.softmax(scores.float(), dim=-1).to(v.dtype)
         out = (weights @ v).transpose(1, 2).reshape(B, L, self.embed_dim)
         return self.output(out)
@@ -214,3 +216,82 @@ class PositionalEncoding(nn.Module):
         freqs = (t[:, -1:] - t)[..., None].float() * self.inv_freq   # [B, T, D/2]
         # f32 phase tables must not promote bf16 activations
         return rope_rotate_pairs(x, torch.cos(freqs), torch.sin(freqs)).to(x.dtype)
+
+
+class RoPE2DPositionalEncoding(nn.Module):
+    """2D polar RoPE over a patch grid (port of the JAX module of that name).
+
+    Adds a learned radial embedding (``embedding`` [num_point, D]: 32
+    anchors, linearly interpolated by the normalised distance from the grid
+    centre), then rotates feature pairs by theta(p, q) = atan2(dq, dp)
+    scaled by a log-spaced frequency bank. The tables are built with numpy
+    in f32 exactly as the JAX module builds them and kept as non-persistent
+    buffers. The sum and the rotation run in f32 and the result keeps the
+    patches' dtype: the JAX module lets its f32 tables promote bf16 patches
+    to f32, which here stays a bf16 rounding of the same f32 result.
+    """
+
+    def __init__(self, embed_dim: int, num_p: int, num_q: int, num_point: int = 32,
+                 freq_base: float = 10000.0):
+        super().__init__()
+        self.embed_dim, self.num_p, self.num_q = embed_dim, num_p, num_q
+        self.embedding = nn.Parameter(torch.zeros(num_point, embed_dim))
+        p, q = np.meshgrid(np.arange(num_p), np.arange(num_q), indexing="ij")
+        center_p, center_q = (num_p - 1) / 2, (num_q - 1) / 2
+        dp = p.astype(np.float32) - center_p
+        dq = q.astype(np.float32) - center_q
+        dist = np.sqrt(dp**2 + dq**2)
+        max_dist = math.sqrt(center_p**2 + center_q**2)
+        sample = np.clip(dist / max_dist, 0.0, 1.0) * (num_point - 1)
+        theta = np.arctan2(dq, dp)
+        half = embed_dim // 2
+        freq = 1.0 / (freq_base ** (np.arange(half, dtype=np.float32) / half))
+        pos_theta = np.einsum("pq,d->pqd", theta, freq)
+        tables = {
+            "cos": np.cos(pos_theta).astype(np.float32),                  # [p,q,D/2]
+            "sin": np.sin(pos_theta).astype(np.float32),
+            "floor": np.clip(np.floor(sample), 0, num_point - 1).astype(np.int64),
+            "ceil": np.clip(np.ceil(sample), 0, num_point - 1).astype(np.int64),
+            "alpha": (sample - np.floor(sample)).astype(np.float32)[..., None],
+        }
+        for name, value in tables.items():
+            self.register_buffer(name, torch.from_numpy(value), persistent=False)
+
+    def forward(self, patches: torch.Tensor) -> torch.Tensor:
+        B = patches.shape[0]
+        x = patches.reshape(B, self.num_p, self.num_q, self.embed_dim)
+        emb = self.embedding.float()
+        dist_emb = emb[self.floor] * (1 - self.alpha) + emb[self.ceil] * self.alpha
+        e2 = (x.float() + dist_emb).reshape(B, self.num_p, self.num_q, -1, 2)
+        x1, x2 = e2[..., 0], e2[..., 1]
+        rotated = torch.stack([self.cos * x1 - self.sin * x2, self.sin * x1 + self.cos * x2], -1)
+        return rotated.reshape(B, self.num_p * self.num_q, self.embed_dim).to(patches.dtype)
+
+
+def floor_mod(x: torch.Tensor, m: float) -> torch.Tensor:
+    """``jnp.mod``: the truncated remainder (exact), moved by `m` where its
+    sign differs from `m`'s."""
+    r = torch.fmod(x, m)
+    return torch.where((r != 0) & ((r < 0) != (m < 0)), r + m, r)
+
+
+class ContinuousAngleEmbedding(nn.Module):
+    """Fourier features of a scalar with a learnable log-spaced frequency
+    bank (``freq_base``, logspace(0, 1, num_freq) at init), then Linear ->
+    exact GELU -> LayerNorm (eps 1e-5): reference names ``freq_base``,
+    ``proj.0``, ``proj.2``. The angle is taken mod ``max_angle`` and mapped
+    to [0, 2 pi); the features are ``[sin | cos]``."""
+
+    def __init__(self, output_dim: int = 64, num_freq: int = 16,
+                 max_angle: float = 2 * math.pi):
+        super().__init__()
+        self.max_angle = max_angle
+        self.freq_base = nn.Parameter(
+            torch.from_numpy(np.logspace(0, 1, num_freq, base=10.0).astype(np.float32)))
+        self.proj = nn.Sequential(Linear(2 * num_freq, output_dim), nn.GELU(),
+                                  LayerNorm(output_dim, eps=1e-5))
+
+    def forward(self, angles: torch.Tensor) -> torch.Tensor:
+        a = floor_mod(angles, self.max_angle) / self.max_angle * (2 * math.pi)
+        scaled = a[..., None] * self.freq_base
+        return self.proj(torch.cat([torch.sin(scaled), torch.cos(scaled)], dim=-1))

@@ -112,6 +112,14 @@ class PoserSession:
 
     @torch.no_grad()
     def _run(self, patches, bboxes, ts, focal, princpt) -> Dict[str, torch.Tensor]:
+        if self.model.latent_trans is not None:
+            # the JAX session's jitted predict passes no "latent" rng either,
+            # and flax raises there
+            raise ValueError(
+                "PoserSession predicts without a latent generator, so a config with "
+                f"num_latent_layer={self.cfg.num_latent_layer} cannot be served: set "
+                "num_latent_layer=None, as evaluation does (cs_vit_tpu/cli/evaluate.py:56); "
+                "the checkpoint's latent_trans.* keys are then dropped on load")
         def dev(x, dtype=torch.float32):
             return torch.as_tensor(np.asarray(x, np.float32)).to(self.device, dtype)
 

@@ -4,8 +4,9 @@
 ``cs_vit_tpu/train/convert.py:export_poser_state_dict``: a flax parameter
 tree and batch-stats tree (nested dicts of numpy arrays) become reference
 state-dict names, which load strictly into :class:`~..models.poser.Poser`.
-It covers the modules the port has: backbone, perspective encoder,
-decoder-type spatial encoder, temporal encoders of either form, heads.
+It covers every module of the Poser: backbone, perspective encoder,
+spatial encoder of either type, temporal encoders of either form, heads and
+the latent group.
 
 Name scheme (flax -> reference):
   backbone/*                   -> backbone.* (HF Swinv2 names)
@@ -13,12 +14,17 @@ Name scheme (flax -> reference):
   perspective_mlp/bn{0,1,2}    -> perspective_mlp.layer.{0,3,6} (+ running stats)
   perspective_mlp/fc{0,1,2}    -> perspective_mlp.layer.{1,4,7}
   perspective_mlp/out          -> perspective_mlp.layer.9
-  spatial_encoder/layerN       -> spatial_encoder.layers.N
+  spatial_encoder/layerN       -> spatial_encoder.layers.N (decoder or encoder blocks)
   *_temporal_encoder/layerN    -> *_temporal_encoder.layers.N (+ zero_conv);
                                   "full": encoder blocks and pe_temporal.pe.weight,
                                   "realtime": cross-attention decoders (norm1,
                                   cross_atten, norm2, ffn) and no pe_temporal
   {pose,shape,root}_decoder    -> {pose,shape,root}_decoder.0
+  latent_trans/rope2d          -> latent_trans.rope2d.embedding
+  latent_trans/{scale,angle}_embedder -> latent_trans.*_embedder.{freq_base,
+                                  proj.0 (Dense), proj.2 (LayerNorm)}
+  latent_trans/{scale,angle}_linear/fc{1,2,3} -> latent_trans.*_linear.{0,2,4}
+  latent_trans/srN             -> latent_trans.sr.N (encoder blocks)
 Dense kernels [in, out] become Linear weights [out, in]; the patch conv
 HWIO becomes OIHW; BatchNorm scale/bias -> weight/bias, mean/var ->
 running_mean/running_var, with num_batches_tracked = 0.
@@ -103,6 +109,24 @@ class FlaxMapper:
         self.bn(fpath + ("norm1",), _join(tname, "norm1"))
         self.bn(fpath + ("norm2",), _join(tname, "norm2"))
 
+    def angle_embedder(self, fpath, tname):
+        self.out[_join(tname, "freq_base")] = self.p[fpath + ("freq_base",)]
+        self.lin(fpath + ("proj",), _join(tname, "proj.0"))
+        self.ln(fpath + ("norm",), _join(tname, "proj.2"))
+
+    def mlp3(self, fpath, tname):
+        for i, n in ((0, "fc1"), (2, "fc2"), (4, "fc3")):
+            self.lin(fpath + (n,), _join(tname, str(i)))
+
+    def latent_group(self, fpath, tname, num_layers):
+        self.out[_join(tname, "rope2d.embedding")] = self.p[fpath + ("rope2d", "embedding")]
+        for name in ("scale_embedder", "angle_embedder"):
+            self.angle_embedder(fpath + (name,), _join(tname, name))
+        for name in ("scale_linear", "angle_linear"):
+            self.mlp3(fpath + (name,), _join(tname, name))
+        for i in range(num_layers):
+            self.encoder_block(fpath + (f"sr{i}",), _join(tname, f"sr.{i}"))
+
     def swinv2_block(self, fpath, tname, qkv_bias=True):
         a, sa = fpath + ("attn",), _join(tname, "attention.self")
         self.out[_join(sa, "logit_scale")] = self.p[a + ("logit_scale",)]
@@ -153,8 +177,9 @@ def state_dict_from_flax(
     m.lin(("perspective_mlp", "out"), "perspective_mlp.layer.9")
 
     m.out["spatial_encoder.pe_spatial.pe.weight"] = m.p[("spatial_encoder", "pe_spatial", "pe")]
+    spatial = m.decoder_block if config.spatial_layer_type == "decoder" else m.encoder_block
     for i in range(config.num_spatial_layer):
-        m.decoder_block(("spatial_encoder", f"layer{i}"), f"spatial_encoder.layers.{i}")
+        spatial(("spatial_encoder", f"layer{i}"), f"spatial_encoder.layers.{i}")
 
     realtime = config.temporal_supervision == "realtime"
     for name in ("pose_temporal_encoder", "shape_temporal_encoder", "root_temporal_encoder"):
@@ -168,14 +193,31 @@ def state_dict_from_flax(
     for name in ("pose_decoder", "shape_decoder", "root_decoder"):
         m.lin((name,), f"{name}.0")
 
+    if config.num_latent_layer is not None:
+        m.latent_group(("latent_trans",), "latent_trans", config.num_latent_layer)
+
     return {k: np.array(v, order="C") for k, v in m.out.items()}
+
+
+LATENT_PREFIX = "latent_trans."
 
 
 def load_reference_state_dict(module: torch.nn.Module, state_dict: Mapping) -> torch.nn.Module:
     """Load a reference-schema state dict (numpy arrays or tensors) into a
     port module strictly, keeping each parameter's and buffer's current
-    dtype and device."""
+    dtype and device.
+
+    A module without a latent group (evaluation and serving drop it, as
+    ``cs_vit_tpu/cli/evaluate.py`` does) takes a latent-trained checkpoint:
+    exactly its ``latent_trans.*`` keys are dropped, with a message that
+    says how many; every other key stays strict."""
     current = module.state_dict()
+    if not any(k.startswith(LATENT_PREFIX) for k in current):
+        dropped = [k for k in state_dict if k.startswith(LATENT_PREFIX)]
+        if dropped:
+            print(f"load_reference_state_dict: dropped {len(dropped)} {LATENT_PREFIX}* keys "
+                  "(the model has no latent group)")
+            state_dict = {k: v for k, v in state_dict.items() if not k.startswith(LATENT_PREFIX)}
     tensors = {}
     for k, v in state_dict.items():
         t = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v))

@@ -33,16 +33,21 @@ _STAT_SUFFIXES = (".running_mean", ".running_var")
 def make_train_step(
     model: torch.nn.Module, optimizer: PhaseAdamW, phase: str,
     compute_dtype: Optional[torch.dtype] = None,
-) -> Callable[[TrainState, Dict[str, torch.Tensor], Optional[torch.Generator]],
-              Tuple[TrainState, Dict]]:
-    """``step(state, batch, generator) -> (state, metrics)`` for `phase`.
+) -> Callable[..., Tuple[TrainState, Dict]]:
+    """``step(state, batch, generator, latent_generator) -> (state,
+    metrics)`` for `phase`.
 
     `batch` holds the ``Poser.forward`` inputs as tensors on the model's
-    device; `generator` draws the droppath masks (None: no droppath). The
+    device; `generator` draws the droppath masks (None: no droppath),
+    `latent_generator` the latent group's scales and angles (a model with a
+    latent group needs one; the JAX step splits its key into these two
+    streams). The
     metrics are the JAX step's: ``loss``, ``grad_norm`` (pre-clip, over the
     trainable parameters), ``skipped`` (1.0 on a non-finite loss),
     ``scalar_logs`` and ``joint_cam_pred``. After an accepted step each
-    trainable parameter's ``.grad`` holds its clipped grad.
+    trainable parameter's ``.grad`` holds its clipped grad: zeros where the
+    loss does not reach it (the encoder-type spatial layers before the last),
+    so that AdamW's decay still applies there, as under JAX's masked AdamW.
     """
     if phase not in ("spatial", "temporal"):
         raise ValueError(f"phase must be 'spatial' or 'temporal', got {phase!r}")
@@ -62,12 +67,13 @@ def make_train_step(
             return p.to(compute_dtype)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
-             generator: Optional[torch.Generator] = None):
+             generator: Optional[torch.Generator] = None,
+             latent_generator: Optional[torch.Generator] = None):
         params = {n: cast(p) for n, p in model.named_parameters()}
         if compute_dtype is not None:
             batch = {**batch, "patches": batch["patches"].to(compute_dtype)}
         stats = {n: model.get_buffer(n).clone() for n in stat_names}
-        out = functional_call(model, {**params, **stats}, (batch, phase, generator))
+        out = functional_call(model, {**params, **stats}, (batch, phase, generator, latent_generator))
         loss = out["loss"].float()
         grads = torch.autograd.grad(loss, trainable, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(trainable, grads)]

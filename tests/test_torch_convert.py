@@ -46,11 +46,16 @@ def test_state_dict_from_flax_matches_jax_export(num_spatial_layer, num_temporal
 
 
 def test_strict_load_rejects_missing_and_unknown_keys():
+    """Strict on every key but a latent-trained checkpoint's latent_trans.*
+    keys, which a model without the latent group drops (as evaluation drops
+    the group)."""
     tmodel = build_model(FinetuneConfig(exp="c", backbone="test", img_size=32))
     sd = {k: v.numpy() for k, v in tmodel.state_dict().items()}
-    extra = dict(sd, **{"latent_trans.rope2d.embedding": np.zeros(3, np.float32)})
+    extra = dict(sd, **{"spatial_encoder.layers.6.norm1.weight": np.zeros(3, np.float32)})
     with pytest.raises(RuntimeError):
         load_reference_state_dict(tmodel, extra)
+    load_reference_state_dict(
+        tmodel, dict(sd, **{"latent_trans.rope2d.embedding": np.zeros(3, np.float32)}))
     sd.pop("query_token")
     with pytest.raises(RuntimeError):
         load_reference_state_dict(tmodel, sd)

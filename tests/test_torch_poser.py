@@ -14,6 +14,8 @@ relative) and untrained weights amplify that through 6 decoder layers with
 the sqrt(d_h)-sharpened softmax to ~3e-5 relative, measured.
 """
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +29,7 @@ from cs_vit_tpu_torch.cli.common import build_model
 from cs_vit_tpu_torch.config import FinetuneConfig
 from cs_vit_tpu_torch.mano import ManoLayer, sh_joint_regressor, synthetic_assets
 from cs_vit_tpu_torch.models import Poser, PoserConfig, SwinV2Config
+from cs_vit_tpu_torch.models import poser as tposer
 from cs_vit_tpu_torch.train.convert import load_reference_state_dict, state_dict_from_flax
 
 from .helpers import TINY_SWIN, tiny_batch, tiny_poser
@@ -57,12 +60,13 @@ def to_numpy(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def compare(jmodel, variables, tmodel, batch, rel=1e-4):
+def compare(jmodel, variables, tmodel, batch, rel=1e-4, rngs=None, latent_generator=None):
     args = [batch[k] for k in ("patches", "square_bboxes", "timestamp", "focal", "princpt")]
     want = jmodel.apply(variables, *[jnp.asarray(a) for a in args], "inference",
-                        method=jmodel.predict)
+                        method=jmodel.predict, rngs=rngs)
     with torch.no_grad():
-        got = tmodel.eval().predict(*[torch.from_numpy(a) for a in args])
+        got = tmodel.eval().predict(*[torch.from_numpy(a) for a in args],
+                                    latent_generator=latent_generator)
     for k in KEYS:
         w = np.asarray(want[k])
         g = got[k].numpy()
@@ -144,8 +148,95 @@ def test_test_backbone_predict_matches_jax(rng):
         assert err <= 2 * max(jax_miss, 1e-4 * scale + 1e-4), (k, err, jax_miss, scale)
 
 
-def test_unported_options_refused():
-    for kw in (dict(num_latent_layer=1, persp_decorate="patch"), dict(persp_embed_method="sparse"),
-               dict(global_positioning="orientation"), dict(spatial_layer_type="encoder")):
-        with pytest.raises(NotImplementedError):
-            PoserConfig(backbone="test", **kw)
+@contextlib.contextmanager
+def pinned_latent_draws(normal, uniform):
+    """The latent group's draws pinned to the same numpy values on both
+    sides: JAX's ``jax.random.normal`` / ``uniform`` of shape (B,) (the
+    latent scale and angle; other shapes pass through) and the port's
+    ``latent_draws``."""
+    B = normal.shape[0]
+    j_normal, j_uniform, t_draws = jax.random.normal, jax.random.uniform, tposer.latent_draws
+
+    def fake_normal(key, shape=(), dtype=jnp.float32, *a, **kw):
+        if tuple(shape) != (B,):
+            return j_normal(key, shape, dtype, *a, **kw)
+        return jnp.asarray(normal, dtype)
+
+    def fake_uniform(key, shape=(), dtype=jnp.float32, *a, **kw):
+        if tuple(shape) != (B,):
+            return j_uniform(key, shape, dtype, *a, **kw)
+        return jnp.asarray(uniform, dtype)
+
+    def fake_draws(batch, generator):
+        assert batch == B and isinstance(generator, torch.Generator)
+        return torch.from_numpy(normal), torch.from_numpy(uniform)
+
+    jax.random.normal, jax.random.uniform = fake_normal, fake_uniform
+    tposer.latent_draws = fake_draws
+    try:
+        yield
+    finally:
+        jax.random.normal, jax.random.uniform = j_normal, j_uniform
+        tposer.latent_draws = t_draws
+
+
+def latent_values(rng, B):
+    """Raw latent draws for B samples: (normal, uniform), f32 numpy."""
+    return rng.normal(size=B).astype(np.float32), rng.uniform(size=B).astype(np.float32)
+
+
+def jax_and_port(rng, B, T, jit_init=False, **overrides):
+    """tiny_poser(**overrides) initialised by flax with randomised
+    statistics, its port carrying the weights across, and a B x T batch
+    whose bboxes, focal lengths and principal points differ per sample and
+    frame. `jit_init` compiles the init as one program (quicker than op by
+    op for a model whose later calls are compiled too)."""
+    jmodel = tiny_poser(**overrides)
+    batch = tiny_batch(rng, B=B, T=T)
+    x0 = rng.uniform(40, 200, size=(B, T, 2))
+    side = rng.uniform(120, 300, size=(B, T, 1))
+    batch["square_bboxes"] = np.concatenate([x0, x0 + side], -1).astype(np.float32)
+    batch["focal"] = rng.uniform(500, 700, size=(B, T, 2)).astype(np.float32)
+    batch["princpt"] = rng.uniform(200, 320, size=(B, T, 2)).astype(np.float32)
+    init = jax.jit(jmodel.init, static_argnames="phase") if jit_init else jmodel.init
+    variables = init(
+        {"params": jax.random.key(0), "droppath": jax.random.key(1), "latent": jax.random.key(2)},
+        {k: jnp.asarray(v) for k, v in batch.items()}, phase="inference",
+    )
+    variables = randomize(variables, rng)
+    tmodel = _port_tiny(**overrides)
+    load_reference_state_dict(tmodel, state_dict_from_flax(
+        to_numpy(variables["params"]), to_numpy(variables["batch_stats"]), tmodel.config))
+    return jmodel, variables, tmodel, batch
+
+
+def compare_latent(jmodel, variables, tmodel, batch, rng):
+    """`compare` for a model with a latent group: pinned draws, a "latent"
+    rng on the JAX side and a latent generator on the port's."""
+    with pinned_latent_draws(*latent_values(rng, batch["patches"].shape[0])):
+        compare(jmodel, variables, tmodel, batch, rngs={"latent": jax.random.key(3)},
+                latent_generator=torch.Generator())
+
+
+FORMERLY_REFUSED = {
+    "latent": dict(num_latent_layer=2, persp_decorate="patch"),
+    "sparse": dict(persp_embed_method="sparse"),
+    "orientation": dict(global_positioning="orientation"),
+    "encoder": dict(spatial_layer_type="encoder"),
+}
+
+
+@pytest.mark.parametrize("option", sorted(FORMERLY_REFUSED))
+def test_formerly_refused_options_match_jax(rng, option):
+    """Each option PoserConfig once refused builds and matches JAX's
+    predict under `compare`'s rule: the latent group (2 layers, patch
+    decoration) at T=1 with pinned draws, its 2B rows in JAX's order; the
+    sparse corners, "orientation" positioning and encoder-type spatial
+    layers at T=2."""
+    kw = FORMERLY_REFUSED[option]
+    PoserConfig(backbone="test", **kw)
+    jmodel, variables, tmodel, batch = jax_and_port(rng, 2, 1 if option == "latent" else 2, **kw)
+    if option == "latent":
+        compare_latent(jmodel, variables, tmodel, batch, rng)
+    else:
+        compare(jmodel, variables, tmodel, batch)
