@@ -24,8 +24,10 @@ order, failing (non-zero exit, no result line) at the first phase that fails:
    (L=16) geometry and with one query row's whole bias at -100, and so is
    the attention backward; ``gemm_wgrad`` also at WGRAD_EDGE_SHAPES,
    ``gemm_bias_act`` and ``gemm_dgrad`` at GEMM_EDGE_SHAPES with every
-   epilogue and output dtype; the bf16 ``gemm_wgrad``, attention backward,
-   ``gemm_bias_act`` and ``gemm_dgrad`` launched twice must give
+   epilogue and output dtype, ``ln_residual`` and ``ln_residual_bwd`` at
+   LN_EDGE_SHAPES with and without droppath scales, every input and output
+   dtype; the bf16 ``gemm_wgrad``, attention backward, ``gemm_bias_act``,
+   ``gemm_dgrad`` and ``ln_residual_bwd`` launched twice must give
    bit-identical outputs; a CUDA ``fused_window_attention`` under autograd
    must raise;
 4. serves the flagship model (Swin-B-256 Poser, img 256, bf16, synthetic
@@ -42,7 +44,9 @@ order, failing (non-zero exit, no result line) at the first phase that fails:
    loss and grad norm against the eager path's, held to a measured floor;
    TRAIN_STEPS bf16 steps on one batch whose loss must fall, with the
    launch counts of one step and the step time; a NaN batch that must leave
-   the state bit-identical; a profiled step (device idle share);
+   the state bit-identical; a profiled step (device idle share; the
+   LayerNorm kernels' and ``sum_splits``' launches and device ms, and
+   ``FusedSwinBlockBackward``'s device ms);
 7. runs the released spenc_addpat configuration (SPENC_CONFIG: encoder-type
    spatial layers, patch decoration, a latent group of two layers) at full
    width: its latent-2x spatial step at b8 (kernel path vs eager path in
@@ -67,9 +71,11 @@ order, failing (non-zero exit, no result line) at the first phase that fails:
 10. times every kernel at its path's shapes (batch 8) beside its plain
    version, one library call and its bound (CUDA events around calls as the
    host issues them, ``cuda_ms``), the two window-attention forward
-   kernels, the attention backward, the three GEMMs and their library calls
-   also queued behind a sleep kernel (``queued_ms``: the card's time,
-   flagged where the host still fell behind), the attention backward's
+   kernels, the attention backward, the three GEMMs, the two LayerNorm
+   kernels and their library calls also queued behind a sleep kernel
+   (``queued_ms``: the card's time, flagged where the host still fell
+   behind; the LayerNorm kernels' inputs rotated through copies larger than
+   the L2, as the step finds them), the attention backward's
    scratch bytes per call and ``gemm_wgrad``'s split-partial bytes per step,
    and the serve latencies;
 11. prints each kernel's kernel / library factor, then ``{"kernels": [...]}``,
@@ -82,6 +88,7 @@ Each phase prints its wall seconds. It imports nothing of JAX or of
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import math
 import re
@@ -122,6 +129,12 @@ WGRAD_EDGE_SHAPES = ((1000, 136, 264), (4104, 520, 136), (33000, 136, 1032))
 # of fused_block._gemm_plan run in each kernel), at every epilogue and
 # output dtype
 GEMM_EDGE_SHAPES = ((1000, 136, 264), (4104, 1032, 72), (33000, 136, 1032))
+# ln_residual and ln_residual_bwd (M rows of C) beside the blocks': each
+# Swin-B width (the kernels' unmasked builds) at M of 1, 7 and 1000 (none a
+# multiple of the plan's rows per block), and the widths of swinv2-tiny and
+# of the "test" backbone (the masked builds)
+LN_EDGE_SHAPES = (tuple((M, C) for C in (128, 256, 512, 1024) for M in (1, 7, 1000))
+                  + tuple((1000, C) for C in (8, 16, 96, 192, 384, 768)))
 KERNEL_SOURCE = "cs_vit_tpu_torch/ops/csrc/fused_block.cu"
 REPLACES = "cs_vit_tpu/ops/fused_block.py:738"
 # kernel vs plain: max |kernel - plain| / max |plain|. f32: only the order of
@@ -217,6 +230,11 @@ PROBE_TOL = {"acc": 2e-2, "vec": 1e-5}
 # queued_ms's sleep kernel ahead of the timed calls (about 20 ms at 1.98 GHz):
 # long enough for the host to enqueue them all
 SLEEP_CYCLES = 40_000_000
+# the two LayerNorm kernels' queued readings rotate each call's inputs through
+# copies that together hold at least this many bytes, over twice the H100's
+# 50 MB L2: each call then reads its inputs from HBM, as the step's backward
+# reads z (written by the forward, many kernels earlier)
+L2_ROTATE_BYTES = 128 * 2**20
 # SFU exp2 throughput of a Hopper SM (16 per clock, the CUDA programming
 # guide's table of arithmetic instruction throughput, compute capability 9.0)
 SFU_PER_CLOCK_PER_SM = 16
@@ -549,10 +567,56 @@ def gemm_edge_checks(torch, fb, dname):
             for name, what, got, want in pairs]
 
 
+def ln_edge_checks(torch, fb, dname):
+    """The two LayerNorm-residual kernels beyond the block geometries, at
+    LN_EDGE_SHAPES, with droppath scales and without: ln_residual with res
+    in the compute dtype and in f32, the f32 copy kept and not;
+    ln_residual_bwd with g in the compute dtype and in f32. Fails if a
+    backward launch left its workspace's counters off 0. [(kernel, what,
+    max_abs, rel, tol)]"""
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dname]
+    f32 = torch.float32
+    gen = torch.Generator().manual_seed(41)
+
+    def n(*shape):
+        return torch.randn(*shape, generator=gen).to(DEV)
+
+    pairs = []
+    for M, C in LN_EDGE_SHAPES:
+        z = n(M, C) * 3 + 0.5
+        gamma, beta = (1 + 0.1 * n(C)).to(dtype), (0.1 * n(C)).to(dtype)
+        images = M if M % 8 else 8
+        dps = torch.tensor([[[1.0, 1.0], [0.0, 2.0]][b % 2] for b in range(images)], device=DEV)
+        for dp in (None, dps):
+            where = f"M{M} C{C} dp {'none' if dp is None else images}"
+            for rt in dict.fromkeys((dtype, f32)):
+                res = n(M, C).to(rt)
+                args = (z, res, gamma, beta, dp, 1, 1e-5, dtype)
+                y32, ydt = fb.ln_residual_reference(*args)
+                for keep in (False, True):
+                    kdt, k32 = fb.ln_residual(*args, keep_f32=keep)
+                    pairs.append(("ln_residual", f"{where} res {rt} keep {keep}", kdt, ydt))
+                    if keep:
+                        pairs.append(("ln_residual", f"{where} res {rt} f32 copy", k32, y32))
+            for gt in dict.fromkeys((dtype, f32)):
+                g = n(M, C).to(gt)
+                got = fb.ln_residual_bwd(z, g, gamma, dp, 0, 1e-5)
+                want = fb.ln_residual_bwd_reference(z, g, gamma, dp, 0, 1e-5)
+                pairs += [("ln_residual_bwd", f"{where} g {gt} {p}", a, b)
+                          for p, a, b in zip(("dz", "dgamma", "dbeta"), got, want)]
+    sync(torch)
+    for key, buf in getattr(fb, "_ln_scratch", {}).items():
+        if bool(buf[:fb.LN_CLUSTER].ne(0).any()):
+            fail(f"ln_residual_bwd left its counters at {buf[:fb.LN_CLUSTER].tolist()} ({key})")
+    return [(name, what, *rel_err(got, want), TOL[dname]["kernel"])
+            for name, what, got, want in pairs]
+
+
 def check_bit_identical(torch, fb, B=8):
-    """The bf16 gemm_wgrad, swin_window_attn_bwd, gemm_bias_act and
-    gemm_dgrad launched twice on the same inputs at every block geometry
-    (each GEMM at the block's four shapes) give bit-identical outputs: every
+    """The bf16 gemm_wgrad, swin_window_attn_bwd, gemm_bias_act, gemm_dgrad
+    and ln_residual_bwd launched twice on the same inputs at every block
+    geometry (each GEMM at the block's four shapes, ln_residual_bwd with the
+    cotangent in bf16 and in f32) give bit-identical outputs: every
     cross-block sum runs in a fixed order, and the two GEMMs sum each output
     in one block. Returns the number of comparisons."""
     bf = torch.bfloat16
@@ -576,6 +640,11 @@ def check_bit_identical(torch, fb, B=8):
         kw = dict(window_size=ws, num_heads=heads, shift=shift)
         calls.append(("swin_window_attn_bwd", lambda: fb.window_attention_bwd(
             qkv, dout, t["rel_bias"], t["logit_scale"], t["mask"], **kw)))
+        z = torch.randn(M, C, generator=gen).to(DEV)
+        for gt in (bf, torch.float32):
+            g = torch.randn(M, C, generator=gen).to(DEV, gt)
+            calls.append((f"ln_residual_bwd g {gt}", lambda z=z, g=g: fb.ln_residual_bwd(
+                z, g, t["ln2_scale"], t["dp"], 1, 1e-5)))
         for what, fn in calls:
             first = [x.clone() for x in fn()]
             second = fn()
@@ -583,8 +652,8 @@ def check_bit_identical(torch, fb, B=8):
             if not all(torch.equal(x, y) for x, y in zip(first, second)):
                 fail(f"{what} at stage{stage} shift{shift} b{B} differs between two launches")
             n += 1
-    print(f"check: gemm_wgrad, swin_window_attn_bwd, gemm_bias_act and gemm_dgrad "
-          f"bit-identical over two launches ({n} comparisons, bf16 b{B})")
+    print(f"check: gemm_wgrad, swin_window_attn_bwd, gemm_bias_act, gemm_dgrad and "
+          f"ln_residual_bwd bit-identical over two launches ({n} comparisons, bf16 b{B})")
     return n
 
 
@@ -672,6 +741,19 @@ def check_kernels(torch, fb, wa):
                     worst[name] = max(worst[name], err)
             print(f"check {where} worst rel/tol: " + ", ".join(
                 f"{k} {r:.2e}/{t:.0e}" for k, (r, t) in by_kernel.items()))
+        ln = ln_edge_checks(torch, fb, dname)
+        n_checks += len(ln)
+        by_kernel = {}
+        for name, what, err, rel, tol in ln:
+            if not rel <= tol:
+                print(f"check {dname} {name} {what}: max_abs={err:.3e} rel={rel:.3e} "
+                      f"tol={tol:.1e} FAIL")
+                fail(f"{name} ({what}) disagrees with its plain version")
+            by_kernel[name] = max(by_kernel.get(name, (0.0, tol)), (rel, tol))
+            if dname == "bf16":
+                worst[name] = max(worst[name], err)
+        print(f"check {dname} LN_EDGE_SHAPES ({len(ln)} checks) worst rel/tol: " + ", ".join(
+            f"{k} {r:.2e}/{t:.0e}" for k, (r, t) in by_kernel.items()))
         for name, what, err, rel, tol in (bwd_edge_checks(torch, fb, dname)
                                           + gemm_edge_checks(torch, fb, dname)):
             n_checks += 1
@@ -805,10 +887,95 @@ def queued(torch, r, n_blocks, kernel, library, what):
     r["queued_host_gapped"] |= gap_k or gap_l
 
 
+def ln_residual_bytes(M, C, res_size, keep):
+    """Bytes ln_residual must move (bf16 out): z f32 and res read, y in bf16
+    (and in f32 if `keep`) written, gamma and beta in bf16 read."""
+    return M * C * (4 + res_size + 2 + (4 if keep else 0)) + 2 * C * 2
+
+
+def ln_residual_bwd_bytes(M, C, g_size, B):
+    """Bytes ln_residual_bwd must move: z f32 and g read, dz f32 written,
+    gamma bf16 and dp [B,2] f32 read, dgamma and dbeta f32 written."""
+    return M * C * (4 + g_size + 4) + C * 2 + B * 8 + 2 * C * 4
+
+
+def l2_cold(make, nbytes):
+    """A call that runs make(0)(), make(1)(), ... in turn: make(i) returns a
+    call on the i-th copy of the inputs (nbytes each), and there are enough
+    copies to hold L2_ROTATE_BYTES, so that no call finds its inputs in L2."""
+    it = itertools.cycle([make(i) for i in range(max(2, -(-L2_ROTATE_BYTES // nbytes)))])
+    return lambda: next(it)()
+
+
+def copies(tensors, i):
+    """The tensors themselves (i == 0) or fresh copies of them."""
+    return tensors if i == 0 else tuple(t.clone() for t in tensors)
+
+
+def queued_ln_residual(torch, fb, F, r, geom, B, seed):
+    """Adds the queued readings of one block's two ln_residual calls (LN1:
+    res in the compute dtype, the f32 copy kept; LN2: res f32) and of their
+    library call, ``res + F.layer_norm``, at geometry `geom` and batch B
+    (bf16, no droppath: as served) to r (QUEUED_KEYS), inputs L2-cold."""
+    stage, res, C, _, _, shift, n_blocks = geom
+    bf = torch.bfloat16
+    gen = torch.Generator().manual_seed(seed)
+    M = B * res * res
+    z = torch.randn(M, C, generator=gen).to(DEV)
+    gamma = (1 + 0.1 * torch.randn(C, generator=gen)).to(DEV, bf)
+    beta = (0.1 * torch.randn(C, generator=gen)).to(DEV, bf)
+    for what, rt, keep in (("ln1", bf, True), ("ln2", torch.float32, False)):
+        res_t = torch.randn(M, C, generator=gen).to(DEV, rt)
+        nbytes = M * C * (4 + res_t.element_size())
+
+        def kern(i, keep=keep, res_t=res_t):
+            zc, rc = copies((z, res_t), i)
+            return lambda: fb.ln_residual(zc, rc, gamma, beta, None, 0, 1e-5, bf, keep)
+
+        def lib(i, res_t=res_t):
+            zc, rc = copies((z, res_t), i)
+            g32, b32 = gamma.float(), beta.float()
+            return lambda: rc + F.layer_norm(zc, (C,), g32, b32, 1e-5)
+
+        queued(torch, r, n_blocks, l2_cold(kern, nbytes), l2_cold(lib, nbytes),
+               f"stage{stage} shift{shift} ln_residual M{M} C{C} {what} (L2-cold)")
+
+
+def queued_ln_residual_bwd(torch, fb, F, r, geom, B, seed):
+    """Adds the queued readings of one block's two ln_residual_bwd calls (LN2:
+    the cotangent in bf16; LN1: f32) and of their library call, autograd of
+    ``F.layer_norm``, at geometry `geom` and batch B (a bf16 step's, with
+    droppath) to r (QUEUED_KEYS), inputs L2-cold."""
+    stage, res, C, heads, ws, shift, n_blocks = geom
+    bf, f32 = torch.bfloat16, torch.float32
+    t = block_inputs(torch, B, res, C, heads, ws, shift, bf, seed=seed)
+    gen = torch.Generator().manual_seed(seed)
+    M = B * res * res
+    for what, gt, gamma, col in (("ln2", bf, t["ln2_scale"], 1), ("ln1", f32, t["ln1_scale"], 0)):
+        z = torch.randn(M, C, generator=gen).to(DEV)
+        g = torch.randn(M, C, generator=gen).to(DEV, gt)
+        nbytes = M * C * (4 + g.element_size())
+
+        def kern(i, z=z, g=g, gamma=gamma, col=col):
+            zc, gc = copies((z, g), i)
+            return lambda: fb.ln_residual_bwd(zc, gc, gamma, t["dp"], col, 1e-5)
+
+        def lib(i, z=z, g=g, gamma=gamma):
+            zc, gc = copies((z, g), i)
+            zl = zc.detach().requires_grad_()
+            wl = gamma.float().requires_grad_()
+            bl = torch.zeros(C, device=DEV, requires_grad=True)
+            yl, g32 = F.layer_norm(zl, (C,), wl, bl, 1e-5), gc.float()
+            return lambda: torch.autograd.grad(yl, (zl, wl, bl), g32, retain_graph=True)
+
+        queued(torch, r, n_blocks, l2_cold(kern, nbytes), l2_cold(lib, nbytes),
+               f"stage{stage} shift{shift} ln_residual_bwd M{M} C{C} {what} (L2-cold)")
+
+
 def time_kernels(torch, fb, F, B=8):
     """Phase 10: per-forward totals at batch B, bf16, summed over the 24 blocks;
-    gemm_bias_act and swin_window_attn_fwd and their library calls also
-    queued (queued_ms)."""
+    gemm_bias_act, swin_window_attn_fwd and ln_residual and their library
+    calls also queued (queued_ms; ln_residual's inputs L2-cold)."""
     bf = torch.bfloat16
     tot = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes_s": 0.0, "flops_s": 0.0,
                "bound_ms": 0.0} for k in ("gemm_bias_act", "ln_residual", "swin_window_attn_fwd")}
@@ -826,9 +993,10 @@ def time_kernels(torch, fb, F, B=8):
         r["flops_s"] += n_blocks * tf
         r["bound_ms"] += n_blocks * max(tb, tf)
 
-    for k in ("gemm_bias_act", "swin_window_attn_fwd"):
+    for k in ("gemm_bias_act", "swin_window_attn_fwd", "ln_residual"):
         tot[k].update(QUEUED_KEYS)
-    for stage, res, C, heads, ws, shift, n_blocks in GEOMS:
+    for geom in GEOMS:
+        stage, res, C, heads, ws, shift, n_blocks = geom
         t = block_inputs(torch, B, res, C, heads, ws, shift, bf, seed=100 + stage)
         M, L, Ch = B * res * res, ws * ws, 4 * C
         x2 = t["x"].reshape(M, C)
@@ -858,9 +1026,10 @@ def time_kernels(torch, fb, F, B=8):
             ms = cuda_ms(torch, lambda: fb.ln_residual(z, res_t, g, be, None, 0, 1e-5, bf, keep))
             plain = cuda_ms(torch, lambda: fb.ln_residual_reference(z, res_t, g, be, None, 0, 1e-5, bf))
             lib = cuda_ms(torch, lambda: res_t + F.layer_norm(z, (C,), g.float(), be.float(), 1e-5))
-            nbytes = M * C * (4 + res_t.element_size() + 2 + (4 if keep else 0)) + 2 * C * 2
+            nbytes = ln_residual_bytes(M, C, res_t.element_size(), keep)
             add("ln_residual", n_blocks, ms, plain, lib, nbytes, 8 * M * C, PEAK_FLOPS["f32"],
                 f"M{M} C{C} res-{res_t.dtype}")
+        queued_ln_residual(torch, fb, F, tot["ln_residual"], geom, B, seed=500 + stage)
         # window attention
         qkv = torch.randn(B, res, res, 3 * C, device=DEV).to(bf)
         kw = dict(window_size=ws, num_heads=heads, shift=shift)
@@ -1680,15 +1849,38 @@ def profile_step(torch, state, step, batch, median_ms, tag="profile step", laten
           f"({sum(r[1] for r in kernels)} kernels), idle share against the unprofiled median "
           f"{median_ms:.3f} ms: {idle:.3f}")
     print_profile(tag, kernels, ops, n=16)
+    print_ln_profile(tag, kernels, ops)
     return idle
+
+
+# the LayerNorm kernels and the second pass of the other backward kernels'
+# cross-block sums, as a profile names them
+LN_PROFILE_KERNELS = {"ln_residual": r"ln_residual_kernel",
+                      "ln_residual_bwd": r"ln_residual_bwd_kernel",
+                      "sum_splits": r"sum_splits_kernel"}
+
+
+def print_ln_profile(tag, kernels, ops):
+    """One profile's device launches and ms of the LayerNorm kernels and of
+    sum_splits (the cross-block sums of gemm_wgrad and the attention
+    backward; ln_residual_bwd sums its own), and the device ms of
+    FusedSwinBlockBackward."""
+    parts = []
+    for name, pattern in LN_PROFILE_KERNELS.items():
+        rows = [r for r in kernels if re.search(pattern, r[2])]
+        parts.append(f"{name} x{sum(r[1] for r in rows)} {sum(r[0] for r in rows):.3f} ms")
+    bwd = [r for r in ops if r[2] == "FusedSwinBlockBackward"]
+    parts.append(f"FusedSwinBlockBackward {sum(r[0] for r in bwd):.3f} ms device")
+    print(f"{tag}: " + ", ".join(parts))
 
 
 def time_bwd_kernels(torch, fb, F, B=8, iters=10):
     """Phase 10: the backward kernels at a bf16 b8 step's shapes, per step
     (summed over the 24 blocks), beside their plain versions, one library call
     each (yardsticks: torch.matmul, autograd of F.layer_norm and of SDPA with
-    a float mask) and their bounds; gemm_dgrad, gemm_wgrad and
-    swin_window_attn_bwd and their library calls also queued (queued_ms;
+    a float mask) and their bounds; gemm_dgrad, gemm_wgrad,
+    ln_residual_bwd and swin_window_attn_bwd and their library calls also
+    queued (queued_ms; ln_residual_bwd's inputs L2-cold;
     gemm_dgrad's torch.matmul is handed dY already in bf16, so its byte
     floor is lower than the kernel's, which reads f32 dY). Prints the attention
     backward's scratch bytes per call and gemm_wgrad's split-partial bytes."""
@@ -1696,7 +1888,7 @@ def time_bwd_kernels(torch, fb, F, B=8, iters=10):
     names = ("gemm_dgrad", "gemm_wgrad", "ln_residual_bwd", "swin_window_attn_bwd")
     tot = {k: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes_s": 0.0, "flops_s": 0.0,
                "bound_ms": 0.0} for k in names}
-    for k in ("gemm_dgrad", "gemm_wgrad", "swin_window_attn_bwd"):
+    for k in ("gemm_dgrad", "gemm_wgrad", "ln_residual_bwd", "swin_window_attn_bwd"):
         tot[k].update(QUEUED_KEYS)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     partial_bytes = 0
@@ -1720,7 +1912,8 @@ def time_bwd_kernels(torch, fb, F, B=8, iters=10):
     def n(*shape, dt=f32):
         return torch.randn(*shape, generator=gen).to(DEV, dt)
 
-    for stage, res, C, heads, ws, shift, n_blocks in GEOMS:
+    for geom in GEOMS:
+        stage, res, C, heads, ws, shift, n_blocks = geom
         t = block_inputs(torch, B, res, C, heads, ws, shift, bf, seed=200 + stage)
         M, L, Ch, hd = B * res * res, ws * ws, 4 * C, C // heads
         dp = t["dp"]
@@ -1733,12 +1926,13 @@ def time_bwd_kernels(torch, fb, F, B=8, iters=10):
             bl = torch.zeros(C, device=DEV, requires_grad=True)
             yl = F.layer_norm(zl, (C,), wl, bl, 1e-5)
             g32 = g.float()
-            nbytes = M * C * (4 + g.element_size() + 4) + C * 2 + B * 8 + 2 * C * 4
+            nbytes = ln_residual_bwd_bytes(M, C, g.element_size(), B)
             add("ln_residual_bwd", n_blocks,
                 lambda: fb.ln_residual_bwd(z, g, gamma, dp, col, 1e-5),
                 lambda: fb.ln_residual_bwd_reference(z, g, gamma, dp, col, 1e-5),
                 lambda: torch.autograd.grad(yl, (zl, wl, bl), g32, retain_graph=True),
                 nbytes, 12 * M * C, PEAK_FLOPS["f32"], f"M{M} C{C} {what}")
+        queued_ln_residual_bwd(torch, fb, F, tot["ln_residual_bwd"], geom, B, seed=600 + stage)
         # the four weight grads: (activation, output grad)
         for what, K, N in (("mlp2", Ch, C), ("mlp1", C, Ch), ("proj", C, C), ("qkv", C, 3 * C)):
             a, dy = n(M, K, dt=bf), n(M, N)

@@ -49,8 +49,18 @@
 //    scatter. f32 (the check path, dt_code 0; nothing times it):
 //    SIMT f32 math, one block per (query tile of 32, head, image*window),
 //    the L x L scores in shared memory.
-//  * ln_residual: bytes. One warp per token row, one read of each input and
-//    one write of each output. A null dp means keep-scales of 1 (inference).
+//  * ln_residual: bytes (z f32 and res in, y in bf16 and f32 out: 8-14
+//    bytes an element against 8 FLOPs). Rows in registers (ln_core.cuh):
+//    half a warp (C = 128), a warp (C = 256, 512) or four warps (C = 1024)
+//    a row, 8 columns a lane a chunk, one 16-byte read of each input chunk
+//    and one 16-byte write of each output chunk; built for each Swin-B width
+//    (C in {128, 256, 512, 1024}: no masks) and once masked for any C a
+//    multiple of 8 up to 1024. The grid
+//    (fused_block.py:_ln_plan) gives every SM at least two blocks where
+//    there are rows enough (stage 3 at b8: 512 four-warp blocks) and at most
+//    four, so that at stages 0 and 1 each block walks 15-63 rows with gamma
+//    and beta kept in registers. A null dp means keep-scales of 1
+//    (inference).
 //
 // Plain C interface for ctypes. Every entry point returns cudaGetLastError()
 // right after its launch; it launches on the caller's stream, allocates
@@ -60,6 +70,7 @@
 
 #include "common.cuh"
 #include "gemm_core.cuh"
+#include "ln_core.cuh"
 #include "window_attn_core.cuh"
 
 namespace {
@@ -285,38 +296,67 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ W,
 }
 
 // ---------------------------------------------------------------------------
-// ln_residual: y = res + dp[b, col] * (LN(z) * gamma + beta), one warp per row
+// ln_residual: y = res + dp[b, col] * (LN(z) * gamma + beta), rows in
+// registers (ln_core.cuh). Replaces the two post-norm residuals of the TPU
+// kernel's _block_kernel (cs_vit_tpu/ops/fused_block.py:_pallas_forward).
+// Each lane keeps its gamma and beta chunks in registers across the rows it
+// takes; each row's z and res are read once, in 16-byte pieces, and each
+// output written once, as 16-byte pieces of bf16 or 32-byte pieces of f32.
 // ---------------------------------------------------------------------------
 
-template <typename ResT, typename DT>
-__global__ void __launch_bounds__(256)
+template <typename ResT, typename DT, int TPR, int VPT, int CX>
+__global__ void __launch_bounds__(LN_THREADS)
 ln_residual_kernel(const float* __restrict__ z, const ResT* __restrict__ res,
                    const DT* __restrict__ gamma, const DT* __restrict__ beta,
                    const float* __restrict__ dp, int dp_col, int rows_per_image,
                    float* __restrict__ out_f32, DT* __restrict__ out_dt,
-                   int M, int C, float eps) {
-  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= M) return;
-  const float* zr = z + (size_t)row * C;
-  float s = 0.0f, ss = 0.0f;
-  for (int c = lane; c < C; c += 32) {
-    const float v = zr[c];
-    s += v;
-    ss += v * v;
+                   int M, int C_arg, float eps) {
+  const int C = CX ? CX : C_arg;
+  const int groups = blockDim.x / TPR, group = threadIdx.x / TPR, lane = threadIdx.x % TPR;
+  int r0, r1;
+  ln_block_rows(M, r0, r1);
+  if (r0 >= r1) return;  // a block without rows (M below the grid)
+  float gm[VPT][8], bt[VPT][8];
+#pragma unroll
+  for (int i = 0; i < VPT; ++i) {
+    const int col = ln_col<TPR>(lane, i);
+    if (ln_in_row<CX>(col, C)) {
+      load8(gamma + col, gm[i]);
+      load8(beta + col, bt[i]);
+    } else {
+      zero8(gm[i]);
+      zero8(bt[i]);
+    }
   }
-  s = warp_sum(s);
-  ss = warp_sum(ss);
-  const float mean = s / C;
-  const float var = fmaxf(ss / C - mean * mean, 0.0f);
-  const float r = rsqrtf(var + eps);
-  const float d = dp ? dp[(row / rows_per_image) * 2 + dp_col] : 1.0f;
-  const size_t base = (size_t)row * C;
-  for (int c = lane; c < C; c += 32) {
-    const float ln = (zr[c] - mean) * r * to_f(gamma[c]) + to_f(beta[c]);
-    const float y = to_f(res[base + c]) + d * ln;
-    if (out_f32) out_f32[base + c] = y;
-    if (out_dt) out_dt[base + c] = from_f<DT>(y);
+  for (int base = r0; base < r1; base += groups) {
+    const int row = base + group;
+    const bool valid = row < r1;
+    const size_t off = (size_t)(valid ? row : 0) * C;
+    float zv[VPT][8], rv[VPT][8];
+#pragma unroll
+    for (int i = 0; i < VPT; ++i) {
+      const int col = ln_col<TPR>(lane, i);
+      if (valid && ln_in_row<CX>(col, C)) {
+        load8(z + off + col, zv[i]);
+        load8(res + off + col, rv[i]);
+      } else {
+        zero8(zv[i]);
+        zero8(rv[i]);
+      }
+    }
+    float mean, r;
+    ln_stats<TPR, VPT>(zv, C, eps, mean, r);
+    const float d = (dp && valid) ? dp[(row / rows_per_image) * 2 + dp_col] : 1.0f;
+#pragma unroll
+    for (int i = 0; i < VPT; ++i) {
+      const int col = ln_col<TPR>(lane, i);
+      if (!valid || !ln_in_row<CX>(col, C)) continue;
+      float y[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) y[e] = rv[i][e] + d * ((zv[i][e] - mean) * r * gm[i][e] + bt[i][e]);
+      if (out_f32) store8(out_f32 + off + col, y);
+      if (out_dt) store8(out_dt + off + col, y);
+    }
   }
 }
 
@@ -689,13 +729,43 @@ extern "C" int gemm_bias_act(const void* A, const void* W, const void* bias, voi
   return (int)cudaGetLastError();
 }
 
+namespace {
+
+// (TPR, VPT, groups, blocks) as fused_block.py:_ln_plan gives them; a plan the
+// kernels were not built for is refused (cudaErrorInvalidValue)
+template <typename ResT, typename DT>
+int launch_ln_residual(const float* z, const ResT* res, const DT* gamma, const DT* beta,
+                       const float* dp, int dp_col, int rows_per_image, float* out_f32,
+                       DT* out_dt, int M, int C, float eps, int tpr, int vpt, int groups,
+                       int blocks, cudaStream_t st) {
+  if (C % 8 != 0 || tpr * groups > LN_THREADS || (tpr * groups) % 32 != 0 ||
+      (tpr > 32 && groups != 1) || 8 * tpr * vpt < C || 8 * tpr * (vpt - 1) >= C)
+    return (int)cudaErrorInvalidValue;
+#define LNF(TPR, VPT, CX)                                                                   \
+  ln_residual_kernel<ResT, DT, TPR, VPT, CX><<<blocks, tpr * groups, 0, st>>>(              \
+      z, res, gamma, beta, dp, dp_col, rows_per_image, out_f32, out_dt, M, C, eps)
+  if (tpr == 16 && vpt == 1) {
+    if (C == 128) LNF(16, 1, 128); else LNF(16, 1, 0);
+  } else if (tpr == 32 && vpt == 1) {
+    if (C == 256) LNF(32, 1, 256); else LNF(32, 1, 0);
+  } else if (tpr == 32 && vpt == 2) {
+    if (C == 512) LNF(32, 2, 512); else LNF(32, 2, 0);
+  } else if (tpr == 128 && vpt == 1) {
+    if (C == 1024) LNF(128, 1, 1024); else LNF(128, 1, 0);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+#undef LNF
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 extern "C" int ln_residual(const void* z, const void* res, const void* gamma, const void* beta,
                            const void* dp, int dp_col, int rows_per_image, void* out_f32,
                            void* out_dt, int M, int C, float eps, int dt_code, int res_f32,
-                           void* stream) {
+                           int tpr, int vpt, int groups, int blocks, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int rows_per_block = 256 / 32;
-  const int grid = (M + rows_per_block - 1) / rows_per_block;
   const float* zf = static_cast<const float*>(z);
   const float* d = static_cast<const float*>(dp);
   float* of = static_cast<float*>(out_f32);
@@ -704,18 +774,15 @@ extern "C" int ln_residual(const void* z, const void* res, const void* gamma, co
     const bf16* bt = static_cast<const bf16*>(beta);
     bf16* od = static_cast<bf16*>(out_dt);
     if (res_f32)
-      ln_residual_kernel<float, bf16><<<grid, 256, 0, st>>>(
-          zf, static_cast<const float*>(res), g, bt, d, dp_col, rows_per_image, of, od, M, C, eps);
-    else
-      ln_residual_kernel<bf16, bf16><<<grid, 256, 0, st>>>(
-          zf, static_cast<const bf16*>(res), g, bt, d, dp_col, rows_per_image, of, od, M, C, eps);
-  } else {
-    ln_residual_kernel<float, float><<<grid, 256, 0, st>>>(
-        zf, static_cast<const float*>(res), static_cast<const float*>(gamma),
-        static_cast<const float*>(beta), d, dp_col, rows_per_image, of,
-        static_cast<float*>(out_dt), M, C, eps);
+      return launch_ln_residual(zf, static_cast<const float*>(res), g, bt, d, dp_col,
+                                rows_per_image, of, od, M, C, eps, tpr, vpt, groups, blocks, st);
+    return launch_ln_residual(zf, static_cast<const bf16*>(res), g, bt, d, dp_col,
+                              rows_per_image, of, od, M, C, eps, tpr, vpt, groups, blocks, st);
   }
-  return (int)cudaGetLastError();
+  return launch_ln_residual(zf, static_cast<const float*>(res), static_cast<const float*>(gamma),
+                            static_cast<const float*>(beta), d, dp_col, rows_per_image, of,
+                            static_cast<float*>(out_dt), M, C, eps, tpr, vpt, groups, blocks,
+                            st);
 }
 
 extern "C" int swin_window_attn_fwd(const void* qkv, const void* rel_bias, const void* mask,

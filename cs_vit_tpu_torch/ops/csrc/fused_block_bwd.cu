@@ -6,7 +6,8 @@
 // backpropagates it in place, carrying the weight grads across its sequential
 // grid in f32 output blocks. On Hopper blocks run in parallel in no order, so
 // every sum across token rows or windows is written as f32 partials and summed
-// by a second, deterministic pass (sum_splits) inside the same entry point. As
+// in a fixed order: by a second, deterministic pass (sum_splits) inside the
+// same entry point, or, in ln_residual_bwd, by the kernel's last blocks. As
 // in the forward, only the attention kernel knows windows and the cyclic shift;
 // the GEMMs and LayerNorms run over the B*H*W token rows in original order.
 // One block backward = 4 gemm_wgrad + 4 gemm_dgrad + 2 ln_residual_bwd +
@@ -46,10 +47,24 @@
 //    fixed order. f32 operands run on SIMT FMA (the tensor cores would round
 //    them to TF32), 64x64 tiles, the bias column sums by the blocks of the
 //    first output-row tile.
-//  * ln_residual_bwd: bytes. One warp per token row, f32 statistics recomputed
-//    from the f32 pre-norm input (E[z^2]-E[z]^2 clamped at 0); per-column
-//    dgamma/dbeta partials in per-warp shared memory, summed per block, then
-//    over blocks.
+//  * ln_residual_bwd: bytes (z f32 and g in, dz f32 out: 10-12 bytes an
+//    element against 12 FLOPs). Rows in registers (ln_core.cuh): half a warp
+//    (C = 128), a warp (C = 256, 512) or four warps (C = 1024) a row, 8
+//    columns a lane a chunk, z and g read once each as 16-byte pieces and dz
+//    written once, f32 statistics recomputed from z (E[z^2]-E[z]^2 clamped
+//    at 0); built for each Swin-B width (no masks) and once masked for any C
+//    a multiple of 8 up to 1024. The lane-to-column map is fixed, so each
+//    lane carries its dgamma/dbeta partials in registers across its rows,
+//    the next pass's row loaded before this one's arithmetic. The block sums
+//    them once in shared memory, each cluster of 8 blocks through
+//    distributed shared memory (one [2C] row per cluster written), and the
+//    last block of each cluster rank to finish sums its eighth of the
+//    columns over the clusters, its threads sharing the clusters so that
+//    many loads are in flight: one launch, the tail split over 8 SMs. The
+//    grid (fused_block.py:_ln_plan) is two blocks an SM where there are rows
+//    enough (stage 3 at b8: 264 four-warp blocks; stages 0 and 1: 31-124
+//    rows a block): more blocks mean more clusters to place and to sum
+//    over, which costs more than their loads in flight gain.
 //  * swin_window_attn_bwd: latency of its dependent products, not the tensor
 //    cores' rate (81 GFLOP a Swin-B b8 step, 0.08 ms at the bf16 peak) nor
 //    bytes. bf16: mma.sync on the pieces of window_attn_core.cuh, one block
@@ -66,10 +81,12 @@
 // right after its last launch; it launches on the caller's stream, allocates
 // nothing (partials live in caller-provided scratch) and does not synchronise.
 
+#include <cooperative_groups.h>
 #include <limits.h>
 
 #include "common.cuh"
 #include "gemm_core.cuh"
+#include "ln_core.cuh"
 #include "window_attn_core.cuh"
 
 namespace {
@@ -581,62 +598,245 @@ gemm_f32_strided_kernel(const float* __restrict__ A, const float* __restrict__ B
 // ln_residual_bwd: for y = res + dp[b, col] * (LN(z) * gamma + beta), per row
 //   zh = (z - mean) r, gz = g dp, zb = gz gamma,
 //   dz = (zb - mean(zb) - zh mean(zb zh)) r,
-// and per column dgamma = sum gz zh, dbeta = sum gz. One warp per row.
+// and per column dgamma = sum gz zh, dbeta = sum gz over every row. Replaces
+// the LayerNorm VJPs of cs_vit_tpu/ops/fused_block.py:_bwd_kernel (:394).
+// Rows in registers (ln_core.cuh): each row's z and g read once, the next
+// pass's row loaded before this one's arithmetic, dz written once, gamma
+// read once into registers. Each lane carries its columns' dgamma/dbeta
+// partials in registers across its rows; then, in a fixed order: the
+// block's row groups summed in shared memory; the 8 blocks of a
+// cluster summed through distributed shared memory, block rank q taking
+// columns [q, q + 1) * 2C / 8 of all 8 and writing them to `part` (one [2C]
+// row per cluster); the last block of each rank to finish (a counter per
+// rank, which that block sets back to 0) sums its columns over the clusters
+// into `out`, spreading the clusters over its threads so that many loads
+// are in flight. Blocks past the last row take part with zero partials.
 // ---------------------------------------------------------------------------
 
-constexpr int LN_THREADS = 256, LN_WARPS = LN_THREADS / 32;
+// floats in flight per thread in the last blocks' sum over the clusters
+constexpr int LN_TAIL_FLOATS = 64;
 
-template <typename GT, typename DT>
-__global__ void __launch_bounds__(LN_THREADS)
-ln_bwd_kernel(const float* __restrict__ z, const GT* __restrict__ g, const DT* __restrict__ gamma,
-              const float* __restrict__ dp, int dp_col, int rows_per_image,
-              float* __restrict__ dz, float* __restrict__ part, int M, int C, float eps,
-              int rows_per_block) {
-  extern __shared__ float lsm[];  // [LN_WARPS][2][C] per-warp column sums
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* mine = lsm + (size_t)warp * 2 * C;
-  for (int c = lane; c < 2 * C; c += 32) mine[c] = 0.0f;
-  const int r_end = min(M, (blockIdx.x + 1) * rows_per_block);
-  for (int row = blockIdx.x * rows_per_block + warp; row < r_end; row += LN_WARPS) {
-    const float* zr = z + (size_t)row * C;
-    const GT* gr = g + (size_t)row * C;
-    float s = 0.0f, ss = 0.0f;
-    for (int c = lane; c < C; c += 32) {
-      const float v = zr[c];
-      s += v;
-      ss += v * v;
+// V adjacent floats (V = 4: 16-byte aligned): from shared or distributed
+// shared memory, from L2 (written by other blocks of this launch), and stored
+template <int V> __device__ __forceinline__ void ldv(const float* p, float (&v)[V]) {
+  if constexpr (V == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else {
+    v[0] = *p;
+  }
+}
+template <int V> __device__ __forceinline__ void ldv_cg(const float* p, float (&v)[V]) {
+  if constexpr (V == 4) {
+    const float4 t = __ldcg(reinterpret_cast<const float4*>(p));
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else {
+    v[0] = __ldcg(p);
+  }
+}
+template <int V> __device__ __forceinline__ void stv(float* p, const float (&v)[V]) {
+  if constexpr (V == 4) *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else *p = v[0];
+}
+
+// atomic add with acquire and release at GPU scope: the writes ordered before
+// it (the block's, by a barrier) are visible to whoever reads the count after
+__device__ __forceinline__ unsigned atomic_add_acq_rel(unsigned* p, unsigned v) {
+  unsigned old;
+  asm volatile("atom.add.acq_rel.gpu.u32 %0, [%1], %2;\n" : "=r"(old) : "l"(p), "r"(v) : "memory");
+  return old;
+}
+
+// columns [rank, rank + 1) * slice of this cluster's partials: the 8 ranks'
+// block sums (lsm[0, 2C) of each) added in rank order, V columns a load
+template <int V>
+__device__ __forceinline__ void ln_cluster_slice(cooperative_groups::cluster_group cluster,
+                                                 float* lsm, float* row, int rank, int slice) {
+  for (int c = threadIdx.x * V; c < slice; c += blockDim.x * V) {
+    float s[V], v[LN_CLUSTER][V];
+#pragma unroll
+    for (int q = 0; q < LN_CLUSTER; ++q) ldv<V>(cluster.map_shared_rank(lsm, q) + rank * slice + c, v[q]);
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      s[e] = v[0][e];
+#pragma unroll
+      for (int q = 1; q < LN_CLUSTER; ++q) s[e] += v[q][e];
     }
-    s = warp_sum(s);
-    ss = warp_sum(ss);
-    const float mean = s / C;
-    const float var = fmaxf(ss / C - mean * mean, 0.0f);
-    const float r = rsqrtf(var + eps);
-    const float d = dp ? dp[(row / rows_per_image) * 2 + dp_col] : 1.0f;
-    float a = 0.0f, b = 0.0f;
-    for (int c = lane; c < C; c += 32) {
-      const float zh = (zr[c] - mean) * r;
-      const float gz = to_f(gr[c]) * d;
-      const float zb = gz * to_f(gamma[c]);
-      a += zb;
-      b += zb * zh;
-      mine[c] += gz * zh;
-      mine[C + c] += gz;
-    }
-    a = warp_sum(a) / C;
-    b = warp_sum(b) / C;
-    float* dzr = dz + (size_t)row * C;
-    for (int c = lane; c < C; c += 32) {
-      const float zh = (zr[c] - mean) * r;
-      const float zb = to_f(gr[c]) * d * to_f(gamma[c]);
-      dzr[c] = (zb - a - zh * b) * r;
+    stv<V>(row + rank * slice + c, s);
+  }
+}
+
+// out[rank * slice, (rank + 1) * slice) = the clusters' rows of `part` summed
+// in a fixed order: `ways` threads share each V-column, thread j taking
+// clusters j, j + ways, ... in order (LN_TAIL_FLOATS / V loads in flight),
+// their sums added in order of j through `red` (ways * slice floats)
+template <int V>
+__device__ __forceinline__ void ln_clusters_sum(const float* part, float* out, float* red,
+                                                int rank, int slice, int clusters, int C2) {
+  constexpr int LOADS = LN_TAIL_FLOATS / V;
+  const int cols = slice / V;
+  const bool wide = (int)blockDim.x >= cols;
+  const int ways = wide ? blockDim.x / cols : 1, way = wide ? threadIdx.x / cols : 0;
+  if (way < ways) {
+    for (int c = (wide ? threadIdx.x % cols : threadIdx.x) * V; c < slice;
+         c += (wide ? cols : blockDim.x) * V) {
+      const float* src = part + (size_t)rank * slice + c;
+      float s[V] = {};
+      for (int k0 = way; k0 < clusters; k0 += LOADS * ways) {
+        float v[LOADS][V];
+#pragma unroll
+        for (int j = 0; j < LOADS; ++j) {
+          const int k = k0 + j * ways;
+          if (k < clusters) {
+            ldv_cg<V>(src + (size_t)k * C2, v[j]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < V; ++e) v[j][e] = 0.0f;
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < LOADS; ++j)
+#pragma unroll
+          for (int e = 0; e < V; ++e) s[e] += v[j][e];
+      }
+      stv<V>(red + way * slice + c, s);
     }
   }
   __syncthreads();
-  for (int c = threadIdx.x; c < 2 * C; c += LN_THREADS) {
-    float sum = 0.0f;
-    for (int w = 0; w < LN_WARPS; ++w) sum += lsm[(size_t)w * 2 * C + c];
-    part[(size_t)blockIdx.x * 2 * C + c] = sum;
+  for (int c = threadIdx.x; c < slice; c += blockDim.x) {
+    float s = red[c];
+    for (int j = 1; j < ways; ++j) s += red[j * slice + c];
+    out[rank * slice + c] = s;
   }
+}
+
+template <typename GT, typename DT, int TPR, int VPT, int CX>
+__global__ void __cluster_dims__(LN_CLUSTER, 1, 1) __launch_bounds__(LN_THREADS)
+ln_residual_bwd_kernel(const float* __restrict__ z, const GT* __restrict__ g,
+                       const DT* __restrict__ gamma, const float* __restrict__ dp, int dp_col,
+                       int rows_per_image, float* __restrict__ dz, float* __restrict__ part,
+                       unsigned* __restrict__ counters, float* __restrict__ out, int M,
+                       int C_arg, float eps) {
+  // [groups][2C]: dgamma | dbeta of each group, then LN_THREADS floats for
+  // the last block's sum over the clusters
+  extern __shared__ __align__(16) float lsm[];
+  __shared__ bool last;
+  const int C = CX ? CX : C_arg;
+  const int groups = blockDim.x / TPR, group = threadIdx.x / TPR, lane = threadIdx.x % TPR;
+  int r0, r1;
+  ln_block_rows(M, r0, r1);
+  float pg[VPT][8], pb[VPT][8], gm[VPT][8];
+#pragma unroll
+  for (int i = 0; i < VPT; ++i) {
+    zero8(pg[i]);
+    zero8(pb[i]);
+    const int col = ln_col<TPR>(lane, i);
+    if (ln_in_row<CX>(col, C)) load8(gamma + col, gm[i]); else zero8(gm[i]);
+  }
+  // one row's z and g (zeros past the block's rows or the row's columns)
+  auto load_row = [&](int row, float (&zr)[VPT][8], float (&gr)[VPT][8]) {
+    const bool valid = row < r1;
+    const size_t off = (size_t)(valid ? row : 0) * C;
+#pragma unroll
+    for (int i = 0; i < VPT; ++i) {
+      const int col = ln_col<TPR>(lane, i);
+      if (valid && ln_in_row<CX>(col, C)) {
+        load8(z + off + col, zr[i]);
+        load8(g + off + col, gr[i]);
+      } else {
+        zero8(zr[i]);
+        zero8(gr[i]);
+      }
+    }
+  };
+  // the row's dz, its dgamma/dbeta terms added to the lane's partials
+  auto row_grad = [&](int row, float (&zh)[VPT][8], float (&gz)[VPT][8]) {
+    const bool valid = row < r1;
+    const size_t off = (size_t)(valid ? row : 0) * C;
+    float mean, r;
+    ln_stats<TPR, VPT>(zh, C, eps, mean, r);
+    const float d = (dp && valid) ? dp[(row / rows_per_image) * 2 + dp_col] : 1.0f;
+    float a = 0.0f, b = 0.0f;
+#pragma unroll
+    for (int i = 0; i < VPT; ++i) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        zh[i][e] = (zh[i][e] - mean) * r;
+        const float gze = gz[i][e] * d;
+        pg[i][e] += gze * zh[i][e];
+        pb[i][e] += gze;
+        gz[i][e] = gze * gm[i][e];  // zb from here on
+        a += gz[i][e];
+        b += gz[i][e] * zh[i][e];
+      }
+    }
+    group_sum2<TPR>(a, b);
+    a /= C;
+    b /= C;
+#pragma unroll
+    for (int i = 0; i < VPT; ++i) {
+      const int col = ln_col<TPR>(lane, i);
+      if (!valid || !ln_in_row<CX>(col, C)) continue;
+      float o[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) o[e] = (gz[i][e] - a - zh[i][e] * b) * r;
+      store8(dz + off + col, o);
+    }
+  };
+  // two rows a group in flight: a pass's loads are issued before the
+  // arithmetic of the pass before it
+  float zA[VPT][8], gA[VPT][8], zB[VPT][8], gB[VPT][8];
+  if (r0 < r1) load_row(r0 + group, zA, gA);
+  for (int base = r0; base < r1; base += 2 * groups) {
+    const bool second = base + groups < r1;
+    if (second) load_row(base + groups + group, zB, gB);
+    row_grad(base + group, zA, gA);
+    if (second) {
+      if (base + 2 * groups < r1) load_row(base + 2 * groups + group, zA, gA);
+      row_grad(base + groups + group, zB, gB);
+    }
+  }
+  // the block's sum over its row groups, in group order, into group 0's row
+  const int C2 = 2 * C;
+#pragma unroll
+  for (int i = 0; i < VPT; ++i) {
+    const int col = ln_col<TPR>(lane, i);
+    if (!ln_in_row<CX>(col, C)) continue;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      lsm[(size_t)group * C2 + col + e] = pg[i][e];
+      lsm[(size_t)group * C2 + C + col + e] = pb[i][e];
+    }
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < C2; c += blockDim.x) {
+    float s = lsm[c];
+    for (int q = 1; q < groups; ++q) s += lsm[(size_t)q * C2 + c];
+    lsm[c] = s;
+  }
+  // the cluster's sum over its blocks, in rank order: rank q its slice
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int rank = (int)cluster.block_rank(), slice = C2 / LN_CLUSTER;
+  const int clusters = gridDim.x / LN_CLUSTER, cl = blockIdx.x / LN_CLUSTER;
+  const bool vec = slice % 4 == 0;  // C a multiple of 16: 16-byte loads
+  if (vec) ln_cluster_slice<4>(cluster, lsm, part + (size_t)cl * C2, rank, slice);
+  else ln_cluster_slice<1>(cluster, lsm, part + (size_t)cl * C2, rank, slice);
+  // done reading the ranks' shared memory; no rank leaves before all are
+  // (ln_cluster_wait below), but the counting goes on meanwhile
+  ln_cluster_arrive();
+  __syncthreads();  // the block's partials, before thread 0's release
+  if (threadIdx.x == 0) last = atomic_add_acq_rel(&counters[rank], 1u) == (unsigned)(clusters - 1);
+  __syncthreads();
+  if (last) {
+    // the last block of this rank: its slice summed over the clusters
+    float* red = lsm + (size_t)groups * C2;
+    if (vec) ln_clusters_sum<4>(part, out, red, rank, slice, clusters, C2);
+    else ln_clusters_sum<1>(part, out, red, rank, slice, clusters, C2);
+    if (threadIdx.x == 0) counters[rank] = 0;
+  }
+  ln_cluster_wait();
 }
 
 // ---------------------------------------------------------------------------
@@ -1481,35 +1681,72 @@ extern "C" int gemm_wgrad(const void* X, const void* dY, void* part, void* out, 
   return launch_sum_splits(p, static_cast<float*>(out), splits, (size_t)K * N + N, st);
 }
 
-// dz [M,C] f32; part [blocks][2][C] scratch; out [2][C] = (dgamma, dbeta).
+namespace {
+
+// (TPR, VPT, groups, blocks) as fused_block.py:_ln_plan gives them, blocks a
+// multiple of LN_CLUSTER; part [blocks / LN_CLUSTER][2C] f32
+// scratch; counters [LN_CLUSTER], zero, left zero; out [2][C] = (dgamma,
+// dbeta). A plan the kernel was not built for is refused.
+template <typename GT, typename DT>
+int launch_ln_residual_bwd(const float* z, const GT* g, const DT* gamma, const float* dp,
+                           int dp_col, int rows_per_image, float* dz, float* part,
+                           unsigned* counters, float* out, int M, int C, float eps, int tpr,
+                           int vpt, int groups, int blocks, cudaStream_t st) {
+  if (C % 8 != 0 || tpr * groups > LN_THREADS || (tpr * groups) % 32 != 0 ||
+      (tpr > 32 && groups != 1) || blocks % LN_CLUSTER != 0 || 8 * tpr * vpt < C ||
+      8 * tpr * (vpt - 1) >= C)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = ((size_t)groups * 2 * C + 4 * LN_THREADS) * sizeof(float);
+#define LNB(TPR, VPT, CX)                                                                   \
+  do {                                                                                      \
+    static int limit[WC_MAX_DEVICES];                                                       \
+    const int e = raise_smem_limit(limit, ln_residual_bwd_kernel<GT, DT, TPR, VPT, CX>, smem); \
+    if (e != 0) return e;                                                                   \
+    ln_residual_bwd_kernel<GT, DT, TPR, VPT, CX><<<blocks, tpr * groups, smem, st>>>(       \
+        z, g, gamma, dp, dp_col, rows_per_image, dz, part, counters, out, M, C, eps);      \
+  } while (0)
+  if (tpr == 16 && vpt == 1) {
+    if (C == 128) LNB(16, 1, 128); else LNB(16, 1, 0);
+  } else if (tpr == 32 && vpt == 1) {
+    if (C == 256) LNB(32, 1, 256); else LNB(32, 1, 0);
+  } else if (tpr == 32 && vpt == 2) {
+    if (C == 512) LNB(32, 2, 512); else LNB(32, 2, 0);
+  } else if (tpr == 128 && vpt == 1) {
+    if (C == 1024) LNB(128, 1, 1024); else LNB(128, 1, 0);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+#undef LNB
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 extern "C" int ln_residual_bwd(const void* z, const void* g, const void* gamma, const void* dp,
-                               int dp_col, int rows_per_image, void* dz, void* part, void* out,
-                               int M, int C, float eps, int blocks, int rows_per_block,
-                               int dt_code, int g_f32, void* stream) {
+                               int dp_col, int rows_per_image, void* dz, void* part,
+                               void* counters, void* out, int M, int C, float eps, int tpr,
+                               int vpt, int groups, int blocks, int dt_code, int g_f32,
+                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = (size_t)LN_WARPS * 2 * C * sizeof(float);
   const float* zf = static_cast<const float*>(z);
   const float* d = static_cast<const float*>(dp);
   float* dzf = static_cast<float*>(dz);
   float* pf = static_cast<float*>(part);
-#define LNB(GT, DT)                                                                         \
-  do {                                                                                      \
-    static int limit[WC_MAX_DEVICES];                                                       \
-    const int e = raise_smem_limit(limit, ln_bwd_kernel<GT, DT>, smem);                     \
-    if (e != 0) return e;                                                                   \
-    ln_bwd_kernel<GT, DT><<<blocks, LN_THREADS, smem, st>>>(                                \
-        zf, static_cast<const GT*>(g), static_cast<const DT*>(gamma), d, dp_col,            \
-        rows_per_image, dzf, pf, M, C, eps, rows_per_block);                                \
-  } while (0)
+  unsigned* cnt = static_cast<unsigned*>(counters);
+  float* of = static_cast<float*>(out);
   if (dt_code == 1) {
-    if (g_f32) LNB(float, bf16); else LNB(bf16, bf16);
-  } else {
-    LNB(float, float);
+    const bf16* gm = static_cast<const bf16*>(gamma);
+    if (g_f32)
+      return launch_ln_residual_bwd(zf, static_cast<const float*>(g), gm, d, dp_col,
+                                    rows_per_image, dzf, pf, cnt, of, M, C, eps, tpr, vpt,
+                                    groups, blocks, st);
+    return launch_ln_residual_bwd(zf, static_cast<const bf16*>(g), gm, d, dp_col,
+                                  rows_per_image, dzf, pf, cnt, of, M, C, eps, tpr, vpt, groups,
+                                  blocks, st);
   }
-#undef LNB
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  return launch_sum_splits(pf, static_cast<float*>(out), blocks, 2 * (size_t)C, st);
+  return launch_ln_residual_bwd(zf, static_cast<const float*>(g),
+                                static_cast<const float*>(gamma), d, dp_col, rows_per_image,
+                                dzf, pf, cnt, of, M, C, eps, tpr, vpt, groups, blocks, st);
 }
 
 // dqkv [B,H,W,3C] f32 (every element written); out [heads*L*L + heads] =

@@ -51,14 +51,15 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "fused_block": {
         "gemm_bias_act": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-        "ln_residual": (_P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, ctypes.c_float, _I, _I, _P),
+        "ln_residual": (_P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, ctypes.c_float, _I, _I,
+                        _I, _I, _I, _I, _P),
         "swin_window_attn_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     },
     "fused_block_bwd": {
         "gemm_dgrad": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
         "gemm_wgrad": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-        "ln_residual_bwd": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _I, ctypes.c_float,
-                            _I, _I, _I, _I, _P),
+        "ln_residual_bwd": (_P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, ctypes.c_float,
+                            _I, _I, _I, _I, _I, _I, _P),
         "swin_window_attn_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                  _I, _I, _P),
         "swin_window_attn_bwd_blocks": (_I, _I),
@@ -180,6 +181,70 @@ def _gemm_plan(kernel: str, M: int, N: int, R: int, sms: int) -> Tuple[int, int,
 
 
 # ---------------------------------------------------------------------------
+# the LayerNorm-residual kernels' launch plan (ln_residual, ln_residual_bwd)
+# ---------------------------------------------------------------------------
+
+# a block of at most LN_THREADS threads holds row groups of half a warp or a
+# warp, or is one group of four warps, each group on one row at a time, 8
+# columns (16 bytes of bf16, 32 of f32) a lane a chunk; rows of C up to
+# LN_MAX_C, a multiple of 8. Each kernel's grid asks for at most
+# LN_BLOCKS_PER_SM[kernel] blocks an SM and is a whole number of the
+# backward's clusters of LN_CLUSTER blocks.
+LN_THREADS, LN_CLUSTER, LN_MAX_C = 256, 8, 1024
+# The forward reads fastest with the most blocks (up to 4 an SM), the
+# backward with 2 an SM: every cluster it adds lengthens its sum over the
+# clusters and the card's placing of the clusters (at stage 2, b8, about a
+# third slower on 4 an SM; cs_vit_tpu_torch/tools/ln_sweep.py --plans times
+# the grids on the card).
+LN_BLOCKS_PER_SM = {"ln_residual": 4, "ln_residual_bwd": 2}
+
+
+def _ln_lanes(C: int) -> Tuple[int, int]:
+    """(lanes per row, 8-column chunks per lane) for rows of C: half a warp
+    up to C = 128, a warp with one or two chunks a lane up to C = 512, else
+    four warps with one (the Swin-B widths 128, 256, 512 and 1024 fill them
+    all). Four warps a row keep stage 3's few rows on many threads, and give
+    the backward's last blocks threads enough to sum the partials."""
+    chunks = C // 8
+    lanes = 16 if chunks <= 16 else 32 if chunks <= 64 else 128
+    return lanes, -(-chunks // lanes)
+
+
+@functools.lru_cache(maxsize=None)
+def _ln_plan(kernel: str, M: int, C: int, sms: int) -> Tuple[int, int, int, int]:
+    """(lanes per row, chunks per lane, row groups per block, blocks) of
+    `kernel` ("ln_residual" or "ln_residual_bwd") over M rows of C on a card
+    of `sms` SMs. Block b takes rows [b M / blocks, (b + 1) M / blocks)
+    (rounded down: the blocks' rows differ by at most one, and every block
+    has rows where M is at least the grid); its groups take one row each per
+    pass (a four-warp group is the whole block). The groups per block halve
+    from a full LN_THREADS block (down to one warp) until the grid can give
+    every SM two blocks, where M has rows enough; the grid is then as many
+    blocks as have a group's worth of rows, capped at LN_BLOCKS_PER_SM[kernel]
+    blocks an SM (at stages 0 and 1 each block walks many rows, with gamma,
+    and the backward's dgamma/dbeta partials, in registers), and rounded up
+    to whole clusters."""
+    lanes, chunks = _ln_lanes(C)
+    least = max(1, 32 // lanes)
+    groups = LN_THREADS // lanes if lanes <= 32 else 1
+    while groups > least and -(-M // groups) < 2 * sms:
+        groups //= 2
+    blocks = min(-(-M // groups), LN_BLOCKS_PER_SM[kernel] * sms)
+    return lanes, chunks, groups, -(-blocks // LN_CLUSTER) * LN_CLUSTER
+
+
+def ln_bwd_partial_floats(M: int, C: int, sms: int) -> int:
+    """f32 partials ln_residual_bwd writes and reads: one [2C] row per
+    cluster of its grid."""
+    return _ln_plan("ln_residual_bwd", M, C, sms)[3] // LN_CLUSTER * 2 * C
+
+
+def _ln_check_width(name: str, C: int) -> None:
+    _require(C % 8 == 0 and 0 < C <= LN_MAX_C,
+             f"{name} takes rows of C a multiple of 8 up to {LN_MAX_C}, got C={C}")
+
+
+# ---------------------------------------------------------------------------
 # gemm_bias_act
 # ---------------------------------------------------------------------------
 
@@ -288,6 +353,9 @@ def ln_residual(
         _require(dp.dtype == torch.float32 and dp.dim() == 2 and dp.shape[1] == 2
                  and M % dp.shape[0] == 0, "dp must be f32 [B,2] with M divisible by B")
     _require(all(t.is_contiguous() for t in tensors), "ln_residual needs contiguous operands")
+    _ln_check_width("ln_residual", C)
+    _require(M > 0 and _aligned16(z, res, gamma, beta), "ln_residual needs rows and "
+             "16-byte aligned operands")
     out_dt = torch.empty((M, C), dtype=out_dtype, device=z.device)
     out_f32 = torch.empty((M, C), dtype=torch.float32, device=z.device) if keep_f32 else None
     rc = _lib().ln_residual(
@@ -295,7 +363,8 @@ def ln_residual(
         None if dp is None else dp.data_ptr(), dp_col, M if dp is None else M // dp.shape[0],
         None if out_f32 is None else out_f32.data_ptr(),
         out_dt.data_ptr(), M, C, float(eps), _DT_CODE[out_dtype],
-        int(res.dtype == torch.float32), _stream(z),
+        int(res.dtype == torch.float32), *_ln_plan("ln_residual", M, C, _sm_count(z)),
+        _stream(z),
     )
     _check_launch("ln_residual", rc)
     ln_residual.launches += 1
@@ -580,6 +649,23 @@ def _dp_rows(dp: Optional[torch.Tensor], dp_col: int, M: int) -> torch.Tensor:
     return dp[:, dp_col].float().repeat_interleave(M // dp.shape[0])[:, None]
 
 
+_ln_scratch: dict = {}
+
+
+def _ln_bwd_scratch(device: torch.device, stream: int, floats: int) -> torch.Tensor:
+    """ln_residual_bwd's workspace on `device` for launches on `stream`:
+    LN_CLUSTER int32 counters, which start at 0 and which every launch
+    leaves at 0, then at least `floats` f32 partials. Kept across calls (a
+    new one, zeroed, only when a call needs more partials), one per stream,
+    since launches on one stream run one after another."""
+    key = (device, stream)
+    buf = _ln_scratch.get(key)
+    if buf is None or buf.numel() < LN_CLUSTER + floats:
+        buf = torch.zeros(LN_CLUSTER + floats, dtype=torch.int32, device=device)
+        _ln_scratch[key] = buf
+    return buf
+
+
 def ln_residual_bwd_reference(
     z: torch.Tensor, g: torch.Tensor, gamma: torch.Tensor, dp: Optional[torch.Tensor],
     dp_col: int, eps: float,
@@ -612,17 +698,19 @@ def ln_residual_bwd(
         _require(dp.dtype == torch.float32 and dp.dim() == 2 and dp.shape[1] == 2
                  and M % dp.shape[0] == 0, "dp must be f32 [B,2] with M divisible by B")
     _require(all(t.is_contiguous() for t in tensors), "ln_residual_bwd needs contiguous operands")
-    blocks = max(1, min(-(-M // 8), 4 * _sm_count(z)))
-    rows_per_block = -(-M // blocks)
-    blocks = -(-M // rows_per_block)
+    _ln_check_width("ln_residual_bwd", C)
+    _require(M > 0 and _aligned16(z, g, gamma), "ln_residual_bwd needs rows and 16-byte "
+             "aligned operands")
+    sms, stream = _sm_count(z), _stream(z)
+    scratch = _ln_bwd_scratch(z.device, stream, ln_bwd_partial_floats(M, C, sms))
     dz = torch.empty((M, C), dtype=torch.float32, device=z.device)
-    part = torch.empty((blocks, 2 * C), dtype=torch.float32, device=z.device)
     out = torch.empty((2, C), dtype=torch.float32, device=z.device)
     rc = _lib("fused_block_bwd").ln_residual_bwd(
         z.data_ptr(), g.data_ptr(), gamma.data_ptr(), None if dp is None else dp.data_ptr(),
-        dp_col, M if dp is None else M // dp.shape[0], dz.data_ptr(), part.data_ptr(),
-        out.data_ptr(), M, C, float(eps), blocks, rows_per_block, _DT_CODE[dt],
-        int(g.dtype == torch.float32), _stream(z),
+        dp_col, M if dp is None else M // dp.shape[0], dz.data_ptr(),
+        scratch.data_ptr() + 4 * LN_CLUSTER, scratch.data_ptr(), out.data_ptr(), M, C,
+        float(eps), *_ln_plan("ln_residual_bwd", M, C, sms), _DT_CODE[dt],
+        int(g.dtype == torch.float32), stream,
     )
     _check_launch("ln_residual_bwd", rc)
     ln_residual_bwd.launches += 1

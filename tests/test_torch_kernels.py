@@ -9,13 +9,14 @@ test whether a card is present and skips otherwise. Run them on the card:
 (``--noconftest``: tests/conftest.py sets up JAX, which the card's machine
 need not have.) The per-kernel cases run ``chip_smoke.kernel_checks``,
 ``chip_smoke.bwd_kernel_checks``, ``chip_smoke.window_attention_checks`` and
-``chip_smoke.attention_checks``, ``chip_smoke.bwd_edge_checks`` and
-``chip_smoke.gemm_edge_checks``, the checks
+``chip_smoke.attention_checks``, ``chip_smoke.bwd_edge_checks``,
+``chip_smoke.gemm_edge_checks`` and ``chip_smoke.ln_edge_checks``, the checks
 ``chip_smoke.py`` makes, at the Swin-B-256 block geometries (the two attention
 forward kernels and the attention backward also at the ws 4 geometries of
 ``chip_smoke.SMALL_GEOMS`` and with a query row's whole bias at -100;
 gemm_wgrad also at ``chip_smoke.WGRAD_EDGE_SHAPES``, gemm_bias_act and
-gemm_dgrad at ``chip_smoke.GEMM_EDGE_SHAPES``) and the batches of
+gemm_dgrad at ``chip_smoke.GEMM_EDGE_SHAPES``, the two LayerNorm kernels at
+``chip_smoke.LN_EDGE_SHAPES``) and the batches of
 ``chip_smoke.CHECK_BATCHES`` (so also marked ``slow``) with its stated
 tolerances (``chip_smoke.TOL``); the overlap probe's case runs
 ``chip_smoke.check_probe`` at the probe's own shapes (``chip_smoke.PROBE_TOL``).
@@ -121,10 +122,51 @@ def test_gemms_beyond_the_block_geometries(dname):
 @pytest.mark.gpu
 @pytest.mark.slow
 def test_backward_kernels_are_bit_identical_over_two_launches():
-    """gemm_wgrad (four shapes), gemm_bias_act (four), gemm_dgrad (four) and
-    the attention backward at every block geometry."""
+    """gemm_wgrad (four shapes), gemm_bias_act (four), gemm_dgrad (four), the
+    attention backward and ln_residual_bwd (the cotangent in bf16 and in
+    f32) at every block geometry."""
     _need_card()
-    assert chip_smoke.check_bit_identical(torch, fb) == 13 * len(chip_smoke.GEOMS)
+    assert chip_smoke.check_bit_identical(torch, fb) == 15 * len(chip_smoke.GEOMS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dname", ["bf16", "f32"])
+def test_layer_norm_kernels_beyond_the_block_geometries(dname):
+    """ln_residual and ln_residual_bwd at chip_smoke.LN_EDGE_SHAPES: each
+    Swin-B width C in {128, 256, 512, 1024} at M of 1, 7 and 1000 and the
+    masked widths, with droppath scales and without (dp None); ln_residual
+    with res in the compute dtype and in f32, keep_f32 on and off;
+    ln_residual_bwd with g in the compute dtype and in f32."""
+    _need_card()
+    fb.reset_launch_counts()
+    results = chip_smoke.ln_edge_checks(torch, fb, dname)
+    bad = [r for r in results if not r[3] <= r[4]]
+    assert not bad, bad
+    dtypes = 2 if dname == "bf16" else 1
+    counts = fb.launch_counts()
+    assert counts["ln_residual"] == len(chip_smoke.LN_EDGE_SHAPES) * 2 * dtypes * 2
+    assert counts["ln_residual_bwd"] == len(chip_smoke.LN_EDGE_SHAPES) * 2 * dtypes
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gname", ["bf16", "f32"])
+def test_ln_residual_bwd_is_bit_identical_over_two_launches(gname):
+    """dz, dgamma and dbeta of two launches on the same inputs at every
+    Swin-B block shape at batch 8 (the sum over rows runs in a fixed order:
+    lanes, row groups, cluster ranks, clusters)."""
+    _need_card()
+    gen = torch.Generator().manual_seed(5)
+    gt = {"bf16": torch.bfloat16, "f32": torch.float32}[gname]
+    for _, res, C, _, _, _, _ in chip_smoke.GEOMS:
+        M = 8 * res * res
+        z = torch.randn(M, C, generator=gen).cuda()
+        g = torch.randn(M, C, generator=gen).to("cuda", gt)
+        gamma = (1 + 0.1 * torch.randn(C, generator=gen)).to("cuda", torch.bfloat16)
+        dp = torch.tensor([[1.0, 1.0], [0.0, 2.0]] * 4, device="cuda")
+        first = [t.clone() for t in fb.ln_residual_bwd(z, g, gamma, dp, 1, 1e-5)]
+        second = fb.ln_residual_bwd(z, g, gamma, dp, 1, 1e-5)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, second)), (M, C)
 
 
 @pytest.mark.gpu
@@ -140,6 +182,10 @@ def test_kernels_refuse_what_they_do_not_take():
     with pytest.raises(ValueError):  # bf16 not 16-byte aligned
         fb.gemm_bias_act(a16, w[:, :16].contiguous(),
                          torch.zeros(16, device="cuda", dtype=torch.bfloat16))
+    z = torch.randn(8, 2048, device="cuda")  # C above LN_MAX_C
+    with pytest.raises(ValueError):
+        fb.ln_residual(z, z, torch.ones(2048, device="cuda"), torch.zeros(2048, device="cuda"),
+                       None, 0, 1e-5, torch.float32)
     qkv = torch.randn(1, 8, 8, 3 * 64, device="cuda")  # head_dim 16
     with pytest.raises(ValueError):
         fb.window_attention(qkv, torch.zeros(4, 64, 64, device="cuda"),
@@ -167,6 +213,13 @@ def test_backward_kernels_refuse_what_they_do_not_take():
     with pytest.raises(ValueError):  # one tensor on the CPU
         fb.ln_residual_bwd(torch.randn(8, 16, device="cuda"), torch.randn(8, 16),
                            torch.ones(16, device="cuda"), None, 0, 1e-5)
+    with pytest.raises(ValueError):  # C not a multiple of 8
+        fb.ln_residual_bwd(torch.randn(8, 20, device="cuda"), torch.randn(8, 20, device="cuda"),
+                           torch.ones(20, device="cuda"), None, 0, 1e-5)
+    z16 = torch.randn(8 * 16 + 1, device="cuda")[1:].view(8, 16)
+    with pytest.raises(ValueError):  # not 16-byte aligned
+        fb.ln_residual_bwd(z16, torch.randn(8, 16, device="cuda"), torch.ones(16, device="cuda"),
+                           None, 0, 1e-5)
     qkv = torch.randn(1, 8, 8, 3 * 64, device="cuda")  # head_dim 16
     with pytest.raises(ValueError):
         fb.window_attention_bwd(qkv, torch.randn(1, 8, 8, 64, device="cuda"),
