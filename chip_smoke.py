@@ -60,15 +60,27 @@ order, failing (non-zero exit, no result line) at the first phase that fails:
    b8: launches, outputs, kernel path vs eager path, latency, a profiled
    forward); and serves one forward of the sparse + patch + orientation
    variant, kernel path vs eager path from calibrated BatchNorm statistics;
-8. trains it in the temporal phase at batch 8, realtime T=3 and full T=5 on
+8. runs the experiment lifecycle through the port's entry points at the
+   flagship width (LIFECYCLE_CONFIG): a synthetic DexYCB tree of 480 x 640
+   frames, ``cli.finetune`` for one epoch and again for a second that must
+   resume from ``checkpoint_1`` (step count, epochs, symlink),
+   ``cli.evaluate`` from the ``checkpoint`` symlink (rows, finite
+   predictions, the whole-block kernels' launches per eval batch, one eval
+   batch held against the eager path and against the dump), and
+   ``cli.benchmark``'s four metrics; it prints which file libraries
+   (FILE_LIBS) are missing and, without h5py, feeds the same loops an
+   in-memory annotation store and keeps the eval rows in memory; it prints
+   the finetune step time, the eval time per batch and the eval loop's
+   share of waiting on the loader;
+9. trains the flagship model in the temporal phase at batch 8, realtime T=3 and full T=5 on
    the attention-only kernel: the f32 backbone tokens and the f32 step
    against the eager path,
    TEMPORAL_STEPS bf16 steps whose loss must fall, every frozen parameter
    and statistic bit-identical afterwards, no saved backbone activations,
    the NaN skip;
-9. runs the tensor-core/SFU overlap probe's kernel against its plain version
+10. runs the tensor-core/SFU overlap probe's kernel against its plain version
    in its three modes, then its entry point (``tools.probe_overlap``);
-10. times every kernel at its path's shapes (batch 8) beside its plain
+11. times every kernel at its path's shapes (batch 8) beside its plain
    version, one library call and its bound (CUDA events around calls as the
    host issues them, ``cuda_ms``), the two window-attention forward
    kernels, the attention backward, the three GEMMs, the two LayerNorm
@@ -78,7 +90,7 @@ order, failing (non-zero exit, no result line) at the first phase that fails:
    the L2, as the step finds them), the attention backward's
    scratch bytes per call and ``gemm_wgrad``'s split-partial bytes per step,
    and the serve latencies;
-11. prints each kernel's kernel / library factor, then ``{"kernels": [...]}``,
+12. prints each kernel's kernel / library factor, then ``{"kernels": [...]}``,
     then ``{"ok": true, "device": {...}}`` as the last line.
 
 Each phase prints its wall seconds. It imports nothing of JAX or of
@@ -218,6 +230,23 @@ SPENC_CONFIG = {"exp": "chip_smoke_spenc", "num_joints": 16,
                 "persp_decorate": "patch", "temporal_supervision": "realtime",
                 "phase": "spatial", "data": "dexycb", "seq_len": 1, "batch_size": 8}
 SPENC_STEPS = 30
+# the lifecycle phase: the flagship configuration (LIFECYCLE_CONFIG with
+# BACKBONE and IMG) fine-tuned through cli.finetune for one epoch, resumed for
+# a second, evaluated through cli.evaluate and scored through cli.benchmark,
+# over a synthetic DexYCB tree of DexYCB's 480 x 640 frames written into the
+# git-ignored LIFECYCLE_DIR: LIFECYCLE_TRAIN sequences x frames give 4 steps
+# at b8 an epoch, LIFECYCLE_TEST 4 eval batches at LIFECYCLE_EVAL_BATCH
+LIFECYCLE_CONFIG = {"exp": "chip_smoke_lifecycle", "data": ["dexycb"], "dtype": "bfloat16",
+                    "batch_size": 8, "lr_scheduler": "warmup", "phase": "spatial",
+                    "temporal_supervision": "full"}
+LIFECYCLE_DIR = "_chip_smoke"
+LIFECYCLE_HW = (480, 640)
+LIFECYCLE_TRAIN, LIFECYCLE_TEST, LIFECYCLE_EVAL_BATCH = (2, 16), (4, 16), 16
+# the file libraries the data and eval paths import where they read or
+# write files; without h5py the phase feeds the same loops through their
+# dataset= and writer= arguments (the annotations in memory, the frames as
+# JPEG files), and the metrics are computed from the rows it kept
+FILE_LIBS = ("h5py", "cv2")
 # the encoder-type spatial layers before the last get no gradient: AdamW moves
 # them by its decay alone, p * (1 - lr * wd) a step, to this relative error
 # (f32 rounding, one multiply a step)
@@ -1158,7 +1187,8 @@ def compare_paths(torch, tag, sessions, impl, req, bf16_tokens, bf16_witness=Fal
     the eager path and of an attention-only kernel path differ by design, so
     those are printed only), joint_cam within twice each dtype's noise
     floor plus SERVE_MM_SLACK (see there). `sessions` maps "bf16" and "f32"
-    to sessions of one config; each is left on `impl`.
+    to sessions of one config; each is left on `impl`. Returns the floors
+    (mm) by dtype.
 
     `bf16_witness`, for trained-like weights (the spenc phase serves the
     weights its steps trained): the heads no longer amplify, and the bf16
@@ -1245,6 +1275,7 @@ def compare_paths(torch, tag, sessions, impl, req, bf16_tokens, bf16_witness=Fal
             fail(f"{tag}: {dname} kernel path disagrees with the eager path")
     for sess in sessions.values():
         sess.model.backbone.set_attention_impl(impl)
+    return floor
 
 
 def serve_realtime(torch, launches):
@@ -1653,6 +1684,238 @@ def spenc(torch, fb):
          if k.endswith(("running_mean", "running_var"))}, strict=False)
     compare_paths(torch, "serve_sparse", sessions, "fused", request(8), bf16_tokens=True,
                   bf16_witness=True)
+
+
+class _Tee:
+    """A stdout that prints and keeps a copy (the entry points report their
+    step and batch times in their log lines)."""
+
+    def __init__(self, real):
+        self.real, self.lines = real, []
+
+    def write(self, text):
+        self.lines.append(text)
+        return self.real.write(text)
+
+    def flush(self):
+        self.real.flush()
+
+    def text(self):
+        return "".join(self.lines)
+
+
+def printed(fn, *args, **kwargs):
+    """(fn's result, what it printed), printing it as well."""
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        result = fn(*args, **kwargs)
+    return result, tee.text()
+
+
+def in_memory_dexycb(root, sequences, split, num_frames, cfg):
+    """The port's DexYCB over annotations held in memory (the arrays
+    make_synthetic_dexycb writes to HDF5) and the JPEG frames under `root`:
+    the same items as from the files, for a machine without h5py."""
+    import os.path as osp
+
+    import numpy as np
+
+    from cs_vit_tpu_torch.data import DexYCB, dexycb
+    from cs_vit_tpu_torch.data.base import SlidingWindowDataset
+
+    class InMemoryDexYCB(DexYCB):
+        def __init__(self):  # DexYCB.__init__ with the HDF5 file replaced by a dict
+            SlidingWindowDataset.__init__(self, num_frames)
+            self.root, self.protocol, self.data_split = root, "s1", split
+            self.img_size, self.expansion_ratio = cfg.img_size, cfg.expansion_ratio
+            self.compat_pose_slice, self._seed = True, 0
+            pca = np.load(osp.join(dexycb._ASSET_DIR, "mano_lr_pca.npz"))
+            self.mano_pca = {k: pca[k].astype(np.float32) for k in ("left", "right")}
+            self.h5 = {f"/sequences/{name}": arrays for s, name, arrays in sequences
+                       if s == split}
+            self.build_index([{"path_h5": k, "seq_length": len(v["imgs_path"])}
+                              for k, v in self.h5.items()])
+
+    return InMemoryDexYCB()
+
+
+class EvalRows:
+    """``EvalH5Writer``'s append and close, keeping the rows in memory."""
+
+    NAMES = ("img_paths", "joint_cam_gt", "joint_cam_pred", "joint_reproj_gt",
+             "joint_reproj_pred")
+
+    def __init__(self):
+        self.parts = {k: [] for k in self.NAMES}
+
+    def append(self, *columns):
+        for name, col in zip(self.NAMES, columns):
+            self.parts[name].append(list(col) if name == "img_paths" else col.astype("float32"))
+
+    def close(self):
+        pass
+
+    def rows(self):
+        import numpy as np
+
+        return {k: sum(v, []) if k == "img_paths" else np.concatenate(v)
+                for k, v in self.parts.items()}
+
+
+def lifecycle(torch, launches, have):
+    """Phase lifecycle: the port's experiment loop at the flagship width.
+    cli.finetune for epoch 1, then again for epoch 2, which must resume from
+    checkpoint_1 (the step count continues, only epoch 2 runs, the
+    ``checkpoint`` symlink moves); cli.evaluate from that symlink (rows,
+    finite predictions, the whole-block kernels' launches per eval batch, one
+    eval batch held against the eager path by ``compare_paths``'s floors and
+    against the dump); cli.benchmark's four metrics, finite. `have` says
+    which of FILE_LIBS import here."""
+    import os
+    import os.path as osp
+    import shutil
+
+    import numpy as np
+
+    from cs_vit_tpu_torch.cli import benchmark, evaluate, finetune
+    from cs_vit_tpu_torch.cli.common import build_datasets, poser_config_from
+    from cs_vit_tpu_torch.config import FinetuneConfig
+    from cs_vit_tpu_torch.data import collate
+    from cs_vit_tpu_torch.data.fixtures import (
+        _write_images,
+        make_synthetic_dexycb,
+        synthetic_dexycb_sequences,
+    )
+    from cs_vit_tpu_torch.evaluation import compute_metrics
+    from cs_vit_tpu_torch.serving import PoserSession
+
+    missing = [m for m in FILE_LIBS if not have[m]]
+    print(f"lifecycle: file libraries missing here: {', '.join(missing) or 'none'}")
+    if not have["cv2"]:
+        fail("lifecycle: cv2 is missing: the DexYCB path decodes, flips and augments with it")
+    work = osp.abspath(LIFECYCLE_DIR)
+    shutil.rmtree(work, ignore_errors=True)
+    data_root, ckpt_root = osp.join(work, "dexycb"), osp.join(work, "checkpoints")
+    t0 = time.perf_counter()
+    splits = (("train", LIFECYCLE_TRAIN, 1), ("test", LIFECYCLE_TEST, 2))
+    if have["h5py"]:
+        for split, (n_seqs, seq_len), seed in splits:
+            make_synthetic_dexycb(data_root, splits=(split,), num_seqs=n_seqs, seq_len=seq_len,
+                                  img_hw=LIFECYCLE_HW, seed=seed)
+        sequences = None
+    else:
+        sequences = [seq for split, (n_seqs, seq_len), seed in splits
+                     for seq in synthetic_dexycb_sequences((split,), n_seqs, seq_len,
+                                                           LIFECYCLE_HW, seed)]
+        for _, _, arrays in sequences:
+            _write_images(data_root, [r.decode() for r in arrays["imgs_path"]],
+                          arrays["images"])
+    n_frames = {split: n * T for split, (n, T), _ in splits}
+    print(f"lifecycle: synthetic DexYCB at {LIFECYCLE_HW[0]}x{LIFECYCLE_HW[1]}, "
+          f"{n_frames['train']} train and {n_frames['test']} test frames, written in "
+          f"{time.perf_counter() - t0:.1f} s ("
+          + ("HDF5 and JPEG files)" if sequences is None else
+             "JPEG files; the annotations in memory)"))
+
+    def config(**over):
+        return FinetuneConfig(**dict(LIFECYCLE_CONFIG, backbone=BACKBONE, img_size=IMG,
+                                     dexycb_root=data_root, **over))
+
+    def dataset(split, cfg):
+        return None if sequences is None else in_memory_dexycb(data_root, sequences, split, 1,
+                                                               cfg)
+
+    exp_dir = osp.realpath(osp.join(ckpt_root, LIFECYCLE_CONFIG["exp"]))
+    steps = n_frames["train"] // LIFECYCLE_CONFIG["batch_size"]
+    runs = []
+    for epoch in (1, 2):
+        cfg = config(epoch=epoch)
+        state, log = printed(finetune.main, cfg, ckpt_root, log_every=1, device=DEV,
+                             dataset=dataset("train", cfg))
+        link = os.readlink(osp.join(exp_dir, "checkpoint"))
+        epochs = re.findall(r"training for epoch (\d+)/", log)
+        print(f"lifecycle: finetune run {epoch}: epochs trained {epochs}, step {state.step}, "
+              f"AdamW updates {state.optimizer.updates_taken()}, checkpoint -> {link}")
+        if epochs != [str(epoch)] or state.step != epoch * steps or link != f"checkpoint_{epoch}":
+            fail(f"lifecycle: finetune run {epoch} trained epochs {epochs} to step {state.step} "
+                 f"and left the symlink at {link}")
+        if epoch == 2 and f"resuming from {osp.join(exp_dir, 'checkpoint_1')}" not in log:
+            fail("lifecycle: the second finetune run did not resume from checkpoint_1")
+        runs.append(log)
+        del state
+    step_ms = [float(ms) for ms in re.findall(r"E2 it \d+/\d+ \| (\d+) ms/it", runs[1])]
+    if len(step_ms) != steps:
+        fail(f"lifecycle: {len(step_ms)} step lines in epoch 2, expected {steps}")
+    print(f"lifecycle_finetune_step_ms_b8 {statistics.median(step_ms):.1f} (median of epoch 2's "
+          f"{steps} steps, the loop's wall a step at 1 ms resolution: {step_ms}) on "
+          f"{nvidia_smi_line() if DEV == 'cuda' else 'the CPU'}")
+
+    ecfg = config(epoch=2, batch_size=LIFECYCLE_EVAL_BATCH,
+                  eval_ckpt=osp.join(exp_dir, "checkpoint"))
+    rows = None if sequences is None else EvalRows()
+    h5_path = osp.join(work, "eval.h5") if rows is None else None
+    sync(torch)
+    launches.reset_launch_counts()
+    _, log = printed(evaluate.main, ecfg, ckpt_root, h5_path=h5_path, device=DEV,
+                     dataset=dataset("test", ecfg), writer=rows)
+    sync(torch)
+    counts = launches.launch_counts()
+    batches = n_frames["test"] // LIFECYCLE_EVAL_BATCH
+    print(f"lifecycle: eval launches over {batches} batches {json.dumps(counts)}")
+    if DEV == "cuda":
+        check_serve_launches("lifecycle eval", counts, batches,
+                             sum(poser_config_from(ecfg).swin_config().depths))
+    timing = re.search(r"eval: (\d+) batches of \d+ in \S+ s, (\S+) ms a batch, (\S+) of the "
+                       r"wall waiting on the loader", log)
+    if (timing is None or int(timing.group(1)) != batches
+            or "loaded eval ckpt (0 unmatched leaves)" not in log):
+        fail("lifecycle: evaluate did not load the whole checkpoint or ran other batches")
+    if rows is None:
+        import h5py
+
+        with h5py.File(h5_path, "r") as f:
+            dump = {k: f[k][()] for k in f}
+        metrics, _ = printed(benchmark.main, h5_path)
+    else:
+        dump = rows.rows()
+        metrics = compute_metrics(dump["joint_cam_gt"], dump["joint_cam_pred"])
+        for key in ("mprpe", "mpjpe_cs", "mpjpe_rs", "mpjpe_pa"):  # benchmark.main's lines
+            print(f"{key}: {metrics[key]} mm")
+    n = batches * LIFECYCLE_EVAL_BATCH
+    shapes = {k: np.shape(v) for k, v in dump.items()}
+    print(f"lifecycle: eval rows {shapes}")
+    if shapes["joint_cam_pred"] != (n, 21, 3) or len(dump["img_paths"]) != n:
+        fail(f"lifecycle: the dump holds {shapes}, expected {n} rows")
+    if not all(np.isfinite(dump[k]).all() for k in dump if k != "img_paths"):
+        fail("lifecycle: non-finite values in the eval dump")
+    if not all(math.isfinite(v) for v in metrics.values()):
+        fail(f"lifecycle: non-finite metrics {metrics}")
+    print(f"lifecycle_eval_ms_per_batch_b{LIFECYCLE_EVAL_BATCH} {timing.group(2)}, "
+          f"loader wait share {timing.group(3)} (host clock, the whole eval loop) on "
+          f"{nvidia_smi_line() if DEV == 'cuda' else 'the CPU'}")
+
+    # one eval batch: the kernel path against the eager path, and the dump
+    ds = dataset("test", ecfg)
+    if ds is None:
+        ds = build_datasets(ecfg, "test")
+    first = collate([ds[i] for i in range(LIFECYCLE_EVAL_BATCH)])  # the loader's first batch
+    req = tuple(first[k] for k in ("patches", "square_bboxes", "timestamp", "focal", "princpt"))
+    ckpt = osp.realpath(osp.join(exp_dir, "checkpoint"))
+    eval_cfg = config(batch_size=LIFECYCLE_EVAL_BATCH)
+    sessions = {d: PoserSession(eval_cfg, checkpoint=ckpt, batch_size=LIFECYCLE_EVAL_BATCH,
+                                dtype=dt, device=DEV)
+                for d, dt in (("bf16", "bfloat16"), ("f32", "float32"))}
+    kernel32 = sessions["f32"].predict_crops(*req)["joint_cam"][:, -1]
+    floor = compare_paths(torch, "lifecycle", sessions, "fused", req, bf16_tokens=True,
+                          bf16_witness=True)
+    err = float(np.abs(dump["joint_cam_pred"][:LIFECYCLE_EVAL_BATCH] - kernel32).max())
+    tol = 2 * floor["f32"] + SERVE_MM_SLACK["f32"]
+    print(f"lifecycle: eval dump's first batch vs the f32 session's kernel path: "
+          f"max_abs={err:.4f} mm, tol={tol:.4f} mm {'ok' if err <= tol else 'FAIL'}")
+    if err > tol:
+        fail("lifecycle: the eval dump disagrees with the served kernel path")
+    del sessions
+    shutil.rmtree(work)
 
 
 def temporal_batch(torch, B, T, seed):
@@ -2206,6 +2469,12 @@ def main() -> int:
 
     with phase("spenc"):
         spenc(torch, fb)
+
+    with phase("lifecycle"):
+        import importlib.util
+
+        lifecycle(torch, launches, {m: importlib.util.find_spec(m) is not None
+                                    for m in FILE_LIBS})
 
     with phase("temporal"):
         temporal = {name: check_temporal(torch, launches, sup, T)

@@ -1,22 +1,48 @@
-"""Shared plumbing: device choice, config -> model construction.
-
-Port of the serving-side half of ``cs_vit_tpu/cli/common.py``.
+"""Shared CLI plumbing: device choice, config tiers, model and dataset
+construction (port of ``cs_vit_tpu/cli/common.py``).
 """
 
 from __future__ import annotations
 
 import json
+import os
 import os.path as osp
-from typing import Optional
+import struct
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from ..config import FinetuneConfig
+from ..data import ConcatDataset, DataLoader, DexYCB
 from ..mano import ManoLayer, find_and_load
 from ..models import Poser, PoserConfig
+from ..utils.dist import process_count, process_index
 
 _ASSET_DIR = osp.join(osp.dirname(__file__), "..", "assets")
+
+
+def load_or_create_config(exp: str, args_dict: dict, ckpt_root: str = "./checkpoints"
+                          ) -> FinetuneConfig:
+    """Reference precedence (`scripts/finetune.py:423-437`): an existing
+    ``<ckpt_root>/<exp>/config.json`` wins over the CLI, except for
+    ``epoch``; without one the CLI values fill a default config, which
+    process 0 writes there. Unknown keys in the file are refused."""
+    cfg_path = osp.join(ckpt_root, exp, "config.json")
+    if osp.exists(cfg_path):
+        cfg = FinetuneConfig.from_json_file(cfg_path)
+        if "epoch" in args_dict and args_dict["epoch"] is not None:
+            cfg.epoch = args_dict["epoch"]
+        print("Config loaded from file")
+    else:
+        cfg = FinetuneConfig()
+        cfg.update({k: v for k, v in args_dict.items() if hasattr(cfg, k)})
+        if process_index() == 0:
+            os.makedirs(osp.dirname(cfg_path), exist_ok=True)
+            with open(cfg_path, "w") as f:
+                f.write(cfg.to_json())
+        print("Config loaded from command")
+    return cfg
 
 
 def resolve_device(device) -> torch.device:
@@ -91,3 +117,100 @@ def build_model(cfg: FinetuneConfig, allow_synthetic_mano: bool = True) -> Poser
     mano = ManoLayer(assets, flat_hand_mean=False)
     jreg = np.load(osp.join(_ASSET_DIR, "sh_joint_regressor.npy"))
     return Poser(config=poser_config_from(cfg), mano=mano, j_regressor=jreg)
+
+
+# safetensors dtype names -> torch dtypes
+_SAFETENSORS_DTYPES = {
+    "F64": torch.float64, "F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
+    "I64": torch.int64, "I32": torch.int32, "I16": torch.int16, "I8": torch.int8,
+    "U8": torch.uint8, "BOOL": torch.bool,
+}
+
+
+def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """Every tensor of a ``.safetensors`` file, on the CPU: an 8-byte
+    little-endian header length, a JSON header (per tensor its dtype, shape
+    and byte range, ranges counted from the end of the header), then the
+    little-endian data."""
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+        data = f.read()
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        dtype = _SAFETENSORS_DTYPES[info["dtype"]]
+        begin, end = info["data_offsets"]
+        if end == begin:
+            out[name] = torch.empty(info["shape"], dtype=dtype)
+        else:  # a copy of the range: aligned, writable, owned by the tensor
+            out[name] = torch.frombuffer(bytearray(data[begin:end]), dtype=dtype).reshape(
+                info["shape"])
+    return out
+
+
+def load_backbone_params(backbone_dir: str, backbone: torch.nn.Module) -> bool:
+    """Load pretrained HF Swinv2 weights from a local checkpoint directory
+    (``model.safetensors``, else ``pytorch_model.bin``) into `backbone`,
+    strictly; False when the directory holds neither file. The backbone's
+    names are HF's, so each is taken as it is or under ``swinv2.``."""
+    st_path = osp.join(backbone_dir, "model.safetensors")
+    bin_path = osp.join(backbone_dir, "pytorch_model.bin")
+    if osp.exists(st_path):
+        sd, path = read_safetensors(st_path), st_path
+    elif osp.exists(bin_path):
+        sd, path = torch.load(bin_path, map_location="cpu", weights_only=True), bin_path
+    else:
+        return False
+    picked = {}
+    for name in backbone.state_dict():
+        key = next((k for k in (name, "swinv2." + name) if k in sd), None)
+        if key is None:
+            raise KeyError(f"{name} (or swinv2.{name}) is not in {path}")
+        picked[name] = sd[key]
+    backbone.load_state_dict(picked, strict=True)
+    return True
+
+
+def build_datasets(cfg: FinetuneConfig, split: str) -> ConcatDataset:
+    """ConcatDataset of the selected sources (ref `finetune.py:66-102`)."""
+    num_frames = 1 if cfg.phase == "spatial" else (cfg.seq_len or 7)
+    data = cfg.data if isinstance(cfg.data, (list, tuple)) else [cfg.data]
+    datasets = []
+    for name in data:
+        if name in ("interhand26m", "ho3d"):
+            raise NotImplementedError(
+                f"dataset {name!r} is not ported to cs_vit_tpu_torch yet (ROADMAP queue 1, "
+                "item 4); 'dexycb' is")
+        if name != "dexycb":
+            raise ValueError(f"unknown dataset: {name}")
+        datasets.append(
+            DexYCB(
+                cfg.dexycb_root, num_frames, "s1",
+                "train" if split == "train" else "test",
+                img_size=cfg.img_size, expansion_ratio=cfg.expansion_ratio,
+            )
+        )
+        print(f"Added {name}")
+    return ConcatDataset(datasets)
+
+
+def build_loader(cfg: FinetuneConfig, dataset, shuffle: bool) -> DataLoader:
+    return DataLoader(
+        dataset,
+        batch_size=cfg.batch_size,
+        shuffle=shuffle,
+        drop_last=True,  # every step sees batch_size, as in the JAX package
+        seed=42,
+        num_shards=process_count(),
+        shard_index=process_index(),
+        num_workers=cfg.num_workers,
+    )
+
+
+def batch_to_device(host_batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
+    """A collated host batch as tensors on `device`, without the fields that
+    are not model inputs (``imgs_path``, ``flip``)."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in host_batch.items() if k not in ("imgs_path", "flip")}

@@ -1,0 +1,223 @@
+"""Training entry point (port of ``cs_vit_tpu/cli/finetune.py``; parity:
+`scripts/finetune.py`).
+
+python -m cs_vit_tpu_torch.cli.finetune --exp myexp --phase spatial \
+    --temporal_supervision full --backbone swinv2-tiny-256 --data dexycb ...
+
+One process on one device: the phase's train step (``train.make_train_step``,
+with its NaN skip and grad clip) over the host loader's batches, a ``.pt``
+checkpoint per epoch with a ``checkpoint`` symlink, resume from that symlink,
+and the warmup-cosine or constant lr. A JAX orbax checkpoint comes across
+through ``tools/export_torch_ckpt.py``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import datetime
+import os
+import time
+
+import numpy as np
+import torch
+
+from ..config import FinetuneConfig
+from ..models import init_poser_weights
+from ..serving import INIT_SEED, load_checkpoint_state_dict
+from ..train import (
+    TrainState,
+    build_optimizer,
+    constant_schedule,
+    latest_checkpoint,
+    make_train_step,
+    merge_params,
+    restore_checkpoint,
+    save_checkpoint,
+    scaled_lr,
+    warmup_cosine_schedule,
+)
+from ..utils.dist import process_count, process_index
+from ..utils.logging import TBLogger, nop, print_grouped_losses, wrap_prefix_print
+from ..utils.profiling import StepTimer
+from .common import (
+    batch_to_device,
+    build_datasets,
+    build_loader,
+    build_model,
+    load_backbone_params,
+    load_or_create_config,
+    resolve_device,
+)
+
+# the droppath generator is seeded DROPPATH_SEED + rank (the JAX loop's key
+# 42 + process index), the latent draws' LATENT_SEED + rank
+DROPPATH_SEED, LATENT_SEED = 42, 1042
+
+
+def check_ported_options(cfg: FinetuneConfig) -> None:
+    """Refuse the config fields whose JAX paths have no port yet."""
+    if cfg.tp > 1:
+        raise NotImplementedError("tensor parallelism (tp > 1) is not ported: ROADMAP queue 1, "
+                                  "item 5")
+    if cfg.remat:
+        raise NotImplementedError("remat is not ported to cs_vit_tpu_torch")
+
+
+def main(cfg: FinetuneConfig, ckpt_root: str = "./checkpoints", log_every: int = 20,
+         device="cuda", dataset=None) -> TrainState:
+    """Train `cfg` for epochs ``start..cfg.epoch``, resuming after the last
+    checkpoint of ``<ckpt_root>/<cfg.exp>``. `dataset` replaces the one
+    ``build_datasets`` would build from `cfg` (same item schema)."""
+    check_ported_options(cfg)
+    device = resolve_device(device)
+    rank = process_index()
+    is_main = rank == 0
+    print_ = wrap_prefix_print(f"[{rank}] ") if is_main else nop
+    exp_dir = os.path.join(ckpt_root, cfg.exp)
+
+    # 1. data
+    if dataset is None:
+        dataset = build_datasets(cfg, "train")
+    loader = build_loader(cfg, dataset, shuffle=True)
+    steps_per_epoch = len(loader)
+
+    # 2. model
+    model = build_model(cfg)
+    init_poser_weights(model, INIT_SEED)
+
+    # pretrained HF backbone weights when --backbone is a checkpoint dir
+    if cfg.backbone and os.path.isdir(cfg.backbone):
+        if load_backbone_params(cfg.backbone, model.backbone):
+            print_(f"loaded pretrained backbone from {cfg.backbone}")
+
+    # temporal phase: start from the spatial checkpoint, strict=False
+    if cfg.phase == "temporal" and cfg.spatial_ckpt:
+        merged, skipped = merge_params(model.state_dict(),
+                                       load_checkpoint_state_dict(cfg.spatial_ckpt))
+        model.load_state_dict(merged, strict=True)
+        print_(f"loaded spatial ckpt ({len(skipped)} unmatched leaves kept fresh)")
+    model.to(device)
+
+    # 3. optimizer + schedule
+    world = process_count()
+    max_lr = scaled_lr(cfg.lr, world, cfg.batch_size)
+    min_lr = scaled_lr(cfg.lr_min, world, cfg.batch_size)
+    if cfg.lr_scheduler == "warmup":
+        schedule = warmup_cosine_schedule(
+            max_lr, min_lr, cfg.warmup_epoch, cfg.cooldown_epoch, steps_per_epoch
+        )
+    else:
+        schedule = constant_schedule(max_lr)
+    optimizer = build_optimizer(model, cfg.phase, schedule)
+    state = TrainState.create(model, optimizer)
+
+    # 4. resume: model (strict), AdamW, step, then the epoch after the saved one
+    start_epoch = 1
+    latest = latest_checkpoint(exp_dir)
+    if latest:
+        print_(f"found checkpoints, resuming from {latest}")
+        restore_checkpoint(latest, state)
+        start_epoch = state.epoch + 1
+
+    # 5. the step
+    compute_dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else None
+    train_step = make_train_step(model, optimizer, cfg.phase, compute_dtype=compute_dtype)
+    tb = TBLogger(os.path.join(exp_dir, "tb_logs") if is_main else None, is_main)
+
+    generator = torch.Generator(device).manual_seed(DROPPATH_SEED + rank)
+    latent_generator = (torch.Generator(device).manual_seed(LATENT_SEED + rank)
+                        if model.latent_trans is not None else None)
+
+    for epoch in range(start_epoch, cfg.epoch + 1):
+        t0 = datetime.datetime.now()
+        print_(f"training for epoch {epoch}/{cfg.epoch}, start {t0:%Y-%m-%d_%H:%M:%S}")
+        loader.set_epoch(epoch)
+        t_log = time.monotonic()
+        meter = StepTimer(warmup=2)
+        for it, host_batch in enumerate(loader):
+            batch = batch_to_device(host_batch, device)
+            state, metrics = train_step(state, batch, generator, latent_generator)
+            meter.update(cfg.batch_size)
+
+            if (it + 1) % log_every == 0:
+                if bool(metrics["skipped"]):
+                    print_("loss is nan, skipped batch")
+                global_step = epoch * steps_per_epoch + it + 1
+                lr_now = float(schedule(state.step))
+                tb.scalars(metrics["scalar_logs"], global_step)
+                tb.scalar("train/lr", lr_now, global_step)
+                tb.scalar("train/grad", float(metrics["grad_norm"]), global_step)
+                iter_time = (time.monotonic() - t_log) / log_every
+                print_grouped_losses(
+                    epoch, it, steps_per_epoch, iter_time, lr_now,
+                    metrics["scalar_logs"], print_,
+                )
+                t_log = time.monotonic()
+
+        t1 = datetime.datetime.now()
+        print_(
+            f"epoch {epoch} ends at {t1:%Y-%m-%d_%H:%M:%S}, cost {t1 - t0}"
+            f" ({meter.samples_per_sec:.1f} samples/s)"
+        )
+
+        state.epoch = epoch
+        if is_main:
+            print_(f"writing checkpoint for epoch {epoch}")
+            save_checkpoint(exp_dir, epoch, state)
+    tb.close()
+    return state
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="cs_vit_tpu_torch finetune")
+    p.add_argument("--exp", type=str, required=True)
+    p.add_argument("--epoch", type=int, default=30)
+    p.add_argument("--phase", type=str, required=True,
+                   choices=["spatial", "temporal", "inference"])
+    p.add_argument("--spatial_ckpt", type=str, default=None)
+    p.add_argument("--temporal_supervision", type=str, required=True,
+                   choices=["full", "realtime"])
+    p.add_argument("--backbone", type=str, required=True)
+    p.add_argument("--global_positioning", type=str, default="direct",
+                   choices=["direct", "orientation"])
+    p.add_argument("--num_latent_layer", type=int, default=None)
+    p.add_argument("--spatial_layer_type", type=str, default="decoder",
+                   choices=["decoder", "encoder"])
+    p.add_argument("--temporal_init_method", type=str, default="zero",
+                   choices=["zero", "random"])
+    p.add_argument("--persp_embed_method", type=str, default="dense",
+                   choices=["dense", "sparse"])
+    p.add_argument("--persp_decorate", type=str, default="query",
+                   choices=["query", "patch"])
+    p.add_argument("--data", type=str, required=True, nargs="+",
+                   choices=["interhand26m", "ho3d", "dexycb"])
+    p.add_argument("--seq_len", type=int, default=7)
+    p.add_argument("--batch_size", type=int, default=16)
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--lr_min", type=float, default=1e-6)
+    p.add_argument("--lr_scheduler", type=str, default="warmup",
+                   choices=["warmup", "constant"])
+    p.add_argument("--img_size", type=int, default=256)
+    p.add_argument("--ih26mseq_root", type=str, default=None)
+    p.add_argument("--ho3d_root", type=str, default=None)
+    p.add_argument("--dexycb_root", type=str, default=None)
+    p.add_argument("--mano_model_dir", type=str, default=None)
+    p.add_argument("--dtype", type=str, default="float32",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--num_workers", type=int, default=None,
+                   help="host loader threads (default: config, 8)")
+    p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
+    return p
+
+
+def cli(argv=None):
+    """Console entry point (`csvit-torch-finetune`), same surface as `python -m`."""
+    args = build_argparser().parse_args(argv)
+    np.random.seed(42)
+    arg_dict = {k: v for k, v in vars(args).items() if v is not None and k != "device"}
+    cfg = load_or_create_config(args.exp, arg_dict)
+    main(cfg, device=args.device)
+
+
+if __name__ == "__main__":
+    cli()

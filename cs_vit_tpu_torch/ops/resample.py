@@ -1,0 +1,132 @@
+"""Host-side image crop and resample with kornia's sampling convention (the
+numpy half of ``cs_vit_tpu/ops/resample.py``).
+
+The reference's pixel path runs through kornia
+(``crop_and_resize(..., align_corners=True)`` at ``cs_vit/utils/img.py:376-385``
+and the rotated-corner train crops at ``cs_vit/dataset/DexYCB.py:208-210``):
+
+* 4 corner points [tl, tr, br, bl] in source pixel coordinates define an
+  affine map onto the output rectangle; output pixel (x, y) samples source
+  location ``tl + x/(W-1) * (tr - tl) + y/(H-1) * (bl - tl)``
+* bilinear interpolation with align_corners=True (integer coordinates are
+  pixel centres) and zero padding outside the source.
+
+This module is the numpy path only. The JAX package's version may take its C
+fast crop instead (``cs_vit_tpu/native``), which computes the sample position
+in f32 where this one does in f64, and so differs by that rounding.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+
+
+def _sample_coords(corners: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """Affine source coords for each output pixel; corners [..., 4, 2]."""
+    tl, tr, _, bl = (corners[..., i, :] for i in range(4))
+    xs = np.linspace(0.0, 1.0, out_w)
+    ys = np.linspace(0.0, 1.0, out_h)
+    ex = (tr - tl)[..., None, None, :]  # along x
+    ey = (bl - tl)[..., None, None, :]  # along y
+    grid = (
+        tl[..., None, None, :]
+        + xs[None, :, None] * ex
+        + ys[:, None, None] * ey
+    )
+    return grid  # [..., H, W, 2] (x, y) source coords
+
+
+def _bilinear_gather_np(img: np.ndarray, coords: np.ndarray) -> np.ndarray:
+    """img [H,W,C]; coords [h,w,2] (x,y) -> [h,w,C], zero padding."""
+    H, W = img.shape[:2]
+    x, y = coords[..., 0], coords[..., 1]
+    x0 = np.floor(x).astype(np.int64)
+    y0 = np.floor(y).astype(np.int64)
+    x1, y1 = x0 + 1, y0 + 1
+    wx = x - x0
+    wy = y - y0
+
+    def fetch(yi, xi):
+        valid = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
+        xi_c = np.clip(xi, 0, W - 1)
+        yi_c = np.clip(yi, 0, H - 1)
+        v = img[yi_c, xi_c]
+        return v * valid[..., None]
+
+    v00 = fetch(y0, x0)
+    v01 = fetch(y0, x1)
+    v10 = fetch(y1, x0)
+    v11 = fetch(y1, x1)
+    wx = wx[..., None]
+    wy = wy[..., None]
+    return (
+        v00 * (1 - wx) * (1 - wy)
+        + v01 * wx * (1 - wy)
+        + v10 * (1 - wx) * wy
+        + v11 * wx * wy
+    )
+
+
+def crop_and_resize_np(
+    images: np.ndarray,   # [N,H,W,C] float32 in [0,1] OR uint8 in [0,255]
+    corners: np.ndarray,  # [N,4,2] (tl,tr,br,bl) in pixel coords
+    out_size: Tuple[int, int],
+) -> np.ndarray:
+    """Host-side kornia-parity crop+resize -> [N,h,w,C] in the images' float
+    dtype (uint8 sources are converted to float32 in [0,1] first)."""
+    h, w = out_size
+    if images.dtype == np.uint8:
+        images = images.astype(np.float32) / 255.0
+    out = np.empty((images.shape[0], h, w, images.shape[-1]), dtype=images.dtype)
+    for i in range(images.shape[0]):
+        grid = _sample_coords(corners[i], h, w)
+        out[i] = _bilinear_gather_np(images[i], grid)
+    return out
+
+
+def expand_bbox_square(bboxes: np.ndarray, expansion_ratio: float = 1.0) -> np.ndarray:
+    """Square-expand xyxy boxes around their centre (ref ``utils/img.py:25-52``)."""
+    x1, y1, x2, y2 = (bboxes[..., i] for i in range(4))
+    max_side = np.maximum(x2 - x1, y2 - y1)
+    cx, cy = (x1 + x2) * 0.5, (y1 + y2) * 0.5
+    half = max_side * 0.5 * expansion_ratio
+    return np.stack([cx - half, cy - half, cx + half, cy + half], axis=-1)
+
+
+def bbox_to_corners(bboxes: np.ndarray) -> np.ndarray:
+    """xyxy [...,4] -> corner points [...,4,2] ordered (tl,tr,br,bl)."""
+    x1, y1, x2, y2 = (bboxes[..., i] for i in range(4))
+    return np.stack(
+        [
+            np.stack([x1, y1], axis=-1),
+            np.stack([x2, y1], axis=-1),
+            np.stack([x2, y2], axis=-1),
+            np.stack([x1, y2], axis=-1),
+        ],
+        axis=-2,
+    )
+
+
+def crop_with_square_box_np(
+    images: np.ndarray,       # [N,H,W,C]
+    tight_bbox: np.ndarray,   # [N,4] xyxy
+    expansion_ratio: float = 2.0,
+    output_size: int = 224,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Eval-path crop (ref ``utils/img.py:339-390``).
+
+    Returns (patches [N,s,s,C], scale_coefs [N], square_bboxes [N,4]).
+    """
+    centers = (tight_bbox[:, :2] + tight_bbox[:, 2:]) / 2
+    sizes = tight_bbox[:, 2:] - tight_bbox[:, :2]
+    max_sizes = sizes.max(axis=1)
+    square_sizes = np.stack([max_sizes, max_sizes], axis=1) * expansion_ratio
+    square_bboxes = np.concatenate(
+        [centers - square_sizes / 2, centers + square_sizes / 2], axis=1
+    ).astype(np.float32)
+    corners = bbox_to_corners(square_bboxes)
+    patches = crop_and_resize_np(images, corners, (output_size, output_size))
+    scales = (square_sizes[:, 0] / output_size).astype(np.float32)
+    return patches, scales, square_bboxes

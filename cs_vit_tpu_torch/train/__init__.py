@@ -18,4 +18,4 @@ from .optim import (  # noqa: F401
     warmup_cosine_schedule,
 )
 from .state import TrainState  # noqa: F401
-from .step import make_train_step  # noqa: F401
+from .step import make_eval_step, make_train_step  # noqa: F401

@@ -1,4 +1,4 @@
-"""The train step (port of ``cs_vit_tpu/train/step.py``, one device).
+"""The train and eval steps (port of ``cs_vit_tpu/train/step.py``, one device).
 
 Mixed precision the JAX way: with ``compute_dtype=torch.bfloat16`` the
 forward and backward run on bf16 copies of the f32 master parameters (the
@@ -105,3 +105,18 @@ def _detach(tree):
     if isinstance(tree, dict):
         return {k: _detach(v) for k, v in tree.items()}
     return tree.detach()
+
+
+def make_eval_step(model: torch.nn.Module, phase: str = "inference"
+                   ) -> Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]:
+    """``eval_step(batch) -> predictions`` (ref `scripts/eval.py:259-266`):
+    ``Poser.predict`` with `phase` under ``torch.no_grad()``, on the
+    parameters as the model stores them (the JAX eval step casts nothing
+    either). `batch` holds tensors on the model's device."""
+
+    @torch.no_grad()
+    def eval_step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return model.predict(batch["patches"], batch["square_bboxes"], batch["timestamp"],
+                             batch["focal"], batch["princpt"], phase)
+
+    return eval_step

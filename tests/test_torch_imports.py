@@ -1,4 +1,7 @@
-"""Import hygiene: the port and chip_smoke.py never import JAX or cs_vit_tpu.
+"""Import hygiene: the port and chip_smoke.py never import JAX or cs_vit_tpu,
+and importing them loads none of the file libraries (h5py, cv2,
+tensorboardX, safetensors) that the card's machine may lack: the functions
+that read or write those formats import them.
 
 Each check runs in a fresh interpreter, so nothing the test session already
 imported can hide an import.
@@ -16,7 +19,8 @@ _CHECK = """
 import importlib, pkgutil, sys
 {imports}
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "cs_vit_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "cs_vit_tpu", "h5py", "cv2",
+                                    "tensorboardX", "safetensors"))
 assert not bad, bad
 print("ok", {count})
 """
