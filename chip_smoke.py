@@ -69,18 +69,35 @@ order, failing (non-zero exit, no result line) at the first phase that fails:
    batch held against the eager path and against the dump), and
    ``cli.benchmark``'s four metrics; it prints which file libraries
    (FILE_LIBS) are missing and, without h5py, feeds the same loops an
-   in-memory annotation store and keeps the eval rows in memory; it prints
-   the finetune step time, the eval time per batch and the eval loop's
-   share of waiting on the loader;
-9. trains the flagship model in the temporal phase at batch 8, realtime T=3 and full T=5 on
+   in-memory annotation store (the datasets' ``store=``) and keeps the eval
+   rows in memory; it prints the finetune step time, the eval time per
+   batch and the eval loop's share of waiting on the loader;
+9. runs the rest of the host data pipeline at the flagship width
+   (DATASETS_CONFIG): synthetic HO3D (480 x 640) and InterHand2.6M (512 x
+   334) trees; prints whether h5py and cv2 import and whether the C crop
+   (``cs_vit_tpu_torch.native``) built, failing if it did not;
+   ``cli.finetune`` for one epoch over both through ``device_prefetch``
+   (step count, the flagship step's launches a step, finite losses, one
+   prefetched batch bit for bit against ``batch_to_device``'s with bf16
+   patches, its staging pinned); ``cli.evaluate`` on the InterHand2.6M test
+   split and the HO3D evaluation split (as in 8); ``predict_images`` on 8
+   full HO3D frames at b1 and b8, equal bit for bit to ``predict_crops`` on
+   the port's own host crops, with the launches per forward; it prints the
+   finetune step and its excess over the bare step, the loader-wait share,
+   the eval time per batch, ``predict_images`` beside ``predict_crops``, and
+   the host crop of one b8 batch, C against numpy, and the bare train step
+   with the loader idle and with it busy; the lifecycle phase (8)
+   prints its finetune step beside the loop's earlier reading with pageable
+   copies and the numpy crop;
+10. trains the flagship model in the temporal phase at batch 8, realtime T=3 and full T=5 on
    the attention-only kernel: the f32 backbone tokens and the f32 step
    against the eager path,
    TEMPORAL_STEPS bf16 steps whose loss must fall, every frozen parameter
    and statistic bit-identical afterwards, no saved backbone activations,
    the NaN skip;
-10. runs the tensor-core/SFU overlap probe's kernel against its plain version
+11. runs the tensor-core/SFU overlap probe's kernel against its plain version
    in its three modes, then its entry point (``tools.probe_overlap``);
-11. times every kernel at its path's shapes (batch 8) beside its plain
+12. times every kernel at its path's shapes (batch 8) beside its plain
    version, one library call and its bound (CUDA events around calls as the
    host issues them, ``cuda_ms``), the two window-attention forward
    kernels, the attention backward, the three GEMMs, the two LayerNorm
@@ -90,7 +107,7 @@ order, failing (non-zero exit, no result line) at the first phase that fails:
    the L2, as the step finds them), the attention backward's
    scratch bytes per call and ``gemm_wgrad``'s split-partial bytes per step,
    and the serve latencies;
-12. prints each kernel's kernel / library factor, then ``{"kernels": [...]}``,
+13. prints each kernel's kernel / library factor, then ``{"kernels": [...]}``,
     then ``{"ok": true, "device": {...}}`` as the last line.
 
 Each phase prints its wall seconds. It imports nothing of JAX or of
@@ -100,6 +117,7 @@ Each phase prints its wall seconds. It imports nothing of JAX or of
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import itertools
 import json
 import math
@@ -242,6 +260,20 @@ LIFECYCLE_CONFIG = {"exp": "chip_smoke_lifecycle", "data": ["dexycb"], "dtype": 
 LIFECYCLE_DIR = "_chip_smoke"
 LIFECYCLE_HW = (480, 640)
 LIFECYCLE_TRAIN, LIFECYCLE_TEST, LIFECYCLE_EVAL_BATCH = (2, 16), (4, 16), 16
+# the datasets phase: the flagship configuration (DATASETS_CONFIG with BACKBONE
+# and IMG) fine-tuned through cli.finetune for one epoch over synthetic HO3D
+# and InterHand2.6M trees at the datasets' own frame sizes, written into the
+# git-ignored DATASETS_DIR: HO3D 2 sequences x 8 frames and InterHand2.6M two
+# hands x 8 frames give 4 steps at b8; evaluated on HO3D's 2 x 16 evaluation
+# frames and InterHand2.6M's 2 x 16 test frames, 2 batches of 16 each
+DATASETS_CONFIG = {"exp": "chip_smoke_datasets", "data": ["ho3d", "interhand26m"],
+                   "dtype": "bfloat16", "batch_size": 8, "lr_scheduler": "warmup",
+                   "phase": "spatial", "temporal_supervision": "full"}
+DATASETS_DIR = "_chip_smoke_datasets"
+DATASETS_HO3D_HW, DATASETS_IH_HW = (480, 640), (512, 334)
+DATASETS_HO3D_TRAIN, DATASETS_HO3D_EVAL = (2, 8), (2, 16)
+DATASETS_IH_TRAIN, DATASETS_IH_TEST = 8, 16
+DATASETS_EVAL_BATCH = 16
 # the file libraries the data and eval paths import where they read or
 # write files; without h5py the phase feeds the same loops through their
 # dataset= and writer= arguments (the annotations in memory, the frames as
@@ -1712,31 +1744,15 @@ def printed(fn, *args, **kwargs):
     return result, tee.text()
 
 
-def in_memory_dexycb(root, sequences, split, num_frames, cfg):
-    """The port's DexYCB over annotations held in memory (the arrays
-    make_synthetic_dexycb writes to HDF5) and the JPEG frames under `root`:
-    the same items as from the files, for a machine without h5py."""
-    import os.path as osp
+def memory_store(sequences, split, group="{}"):
+    """The annotations of `split`'s sequences as an in-memory store that a
+    dataset reads in place of its HDF5 file (its ``store=``), each
+    sequence's arrays under ``group.format(name)``; for a machine without
+    h5py."""
+    from cs_vit_tpu_torch.data.fixtures import MemoryStore
 
-    import numpy as np
-
-    from cs_vit_tpu_torch.data import DexYCB, dexycb
-    from cs_vit_tpu_torch.data.base import SlidingWindowDataset
-
-    class InMemoryDexYCB(DexYCB):
-        def __init__(self):  # DexYCB.__init__ with the HDF5 file replaced by a dict
-            SlidingWindowDataset.__init__(self, num_frames)
-            self.root, self.protocol, self.data_split = root, "s1", split
-            self.img_size, self.expansion_ratio = cfg.img_size, cfg.expansion_ratio
-            self.compat_pose_slice, self._seed = True, 0
-            pca = np.load(osp.join(dexycb._ASSET_DIR, "mano_lr_pca.npz"))
-            self.mano_pca = {k: pca[k].astype(np.float32) for k in ("left", "right")}
-            self.h5 = {f"/sequences/{name}": arrays for s, name, arrays in sequences
-                       if s == split}
-            self.build_index([{"path_h5": k, "seq_length": len(v["imgs_path"])}
-                              for k, v in self.h5.items()])
-
-    return InMemoryDexYCB()
+    return MemoryStore.of((group.format(name), arrays) for s, name, arrays in sequences
+                          if s == split)
 
 
 class EvalRows:
@@ -1762,32 +1778,126 @@ class EvalRows:
                 for k, v in self.parts.items()}
 
 
-def lifecycle(torch, launches, have):
-    """Phase lifecycle: the port's experiment loop at the flagship width.
-    cli.finetune for epoch 1, then again for epoch 2, which must resume from
-    checkpoint_1 (the step count continues, only epoch 2 runs, the
-    ``checkpoint`` symlink moves); cli.evaluate from that symlink (rows,
-    finite predictions, the whole-block kernels' launches per eval batch, one
-    eval batch held against the eager path by ``compare_paths``'s floors and
-    against the dump); cli.benchmark's four metrics, finite. `have` says
-    which of FILE_LIBS import here."""
+def run_finetune(torch, tag, cfg, ckpt_root, epoch, steps, dataset):
+    """cli.finetune for epoch `epoch` of `cfg` (resuming after epoch - 1):
+    the epochs it trained, its step count and the ``checkpoint`` symlink
+    checked; returns (its log, its ms a step from the log lines, its share
+    of the epoch's wall spent waiting on the loader)."""
     import os
     import os.path as osp
-    import shutil
+
+    from cs_vit_tpu_torch.cli import finetune
+
+    exp_dir = osp.realpath(osp.join(ckpt_root, cfg.exp))
+    state, log = printed(finetune.main, cfg, ckpt_root, log_every=1, device=DEV,
+                         dataset=dataset)
+    link = os.readlink(osp.join(exp_dir, "checkpoint"))
+    epochs = re.findall(r"training for epoch (\d+)/", log)
+    print(f"{tag}: finetune run {epoch}: epochs trained {epochs}, step {state.step}, "
+          f"AdamW updates {state.optimizer.updates_taken()}, checkpoint -> {link}")
+    if epochs != [str(epoch)] or state.step != epoch * steps or link != f"checkpoint_{epoch}":
+        fail(f"{tag}: finetune run {epoch} trained epochs {epochs} to step {state.step} "
+             f"and left the symlink at {link}")
+    if epoch > 1 and f"resuming from {osp.join(exp_dir, f'checkpoint_{epoch - 1}')}" not in log:
+        fail(f"{tag}: finetune run {epoch} did not resume from checkpoint_{epoch - 1}")
+    step_ms = [float(ms) for ms in re.findall(rf"E{epoch} it \d+/\d+ \| (\d+) ms/it", log)]
+    wait = re.search(r"samples/s, (\S+) of the wall waiting on the loader", log)
+    if len(step_ms) != steps or wait is None:
+        fail(f"{tag}: {len(step_ms)} step lines in epoch {epoch}, expected {steps}")
+    logged = [float(v) for v in re.findall(r"=(\S+?)(?: \||$)", log, re.M)]
+    if not logged or not all(math.isfinite(v) for v in logged):
+        fail(f"{tag}: non-finite or missing losses in the step lines")
+    del state
+    return log, step_ms, float(wait.group(1))
+
+
+def run_eval(torch, launches, tag, ecfg, ckpt_root, dataset, n_batches, h5_path, cfg_of):
+    """cli.evaluate of `ecfg` from its eval checkpoint: rows, finite values,
+    the whole-block kernels' launches per batch; its first batch held against
+    the eager path by ``compare_paths``'s floors and the dump against the
+    f32 session's kernel path. Without `h5_path` the rows stay in memory.
+    Returns (the dump, its ms a batch, its loader-wait share)."""
+    import os.path as osp
 
     import numpy as np
 
-    from cs_vit_tpu_torch.cli import benchmark, evaluate, finetune
+    from cs_vit_tpu_torch.cli import evaluate
     from cs_vit_tpu_torch.cli.common import build_datasets, poser_config_from
-    from cs_vit_tpu_torch.config import FinetuneConfig
     from cs_vit_tpu_torch.data import collate
+    from cs_vit_tpu_torch.serving import PoserSession
+
+    B = ecfg.batch_size
+    rows = None if h5_path else EvalRows()
+    sync(torch)
+    launches.reset_launch_counts()
+    _, log = printed(evaluate.main, ecfg, ckpt_root, h5_path=h5_path, device=DEV,
+                     dataset=dataset, writer=rows)
+    sync(torch)
+    counts = launches.launch_counts()
+    print(f"{tag}: eval launches over {n_batches} batches {json.dumps(counts)}")
+    if DEV == "cuda":
+        check_serve_launches(f"{tag} eval", counts, n_batches,
+                             sum(poser_config_from(ecfg).swin_config().depths))
+    timing = re.search(r"eval: (\d+) batches of \d+ in \S+ s, (\S+) ms a batch, (\S+) of the "
+                       r"wall waiting on the loader", log)
+    if (timing is None or int(timing.group(1)) != n_batches
+            or "loaded eval ckpt (0 unmatched leaves)" not in log):
+        fail(f"{tag}: evaluate did not load the whole checkpoint or ran other batches")
+    if rows is None:
+        import h5py
+
+        with h5py.File(h5_path, "r") as f:
+            dump = {k: f[k][()] for k in f}
+    else:
+        dump = rows.rows()
+    n = n_batches * B
+    shapes = {k: np.shape(v) for k, v in dump.items()}
+    print(f"{tag}: eval rows {shapes}")
+    if shapes["joint_cam_pred"] != (n, 21, 3) or len(dump["img_paths"]) != n:
+        fail(f"{tag}: the dump holds {shapes}, expected {n} rows")
+    if not all(np.isfinite(dump[k]).all() for k in dump if k != "img_paths"):
+        fail(f"{tag}: non-finite values in the eval dump")
+
+    # one eval batch: the kernel path against the eager path, and the dump
+    ds = dataset if dataset is not None else build_datasets(ecfg, "test")
+    first = collate([ds[i] for i in range(B)])  # the loader's first batch
+    req = tuple(first[k] for k in ("patches", "square_bboxes", "timestamp", "focal", "princpt"))
+    ckpt = osp.realpath(ecfg.eval_ckpt)
+    sessions = {d: PoserSession(cfg_of(batch_size=B), checkpoint=ckpt, batch_size=B, dtype=dt,
+                                device=DEV)
+                for d, dt in (("bf16", "bfloat16"), ("f32", "float32"))}
+    kernel32 = sessions["f32"].predict_crops(*req)["joint_cam"][:, -1]
+    floor = compare_paths(torch, tag, sessions, "fused", req, bf16_tokens=True,
+                          bf16_witness=True)
+    err = float(np.abs(dump["joint_cam_pred"][:B] - kernel32).max())
+    tol = 2 * floor["f32"] + SERVE_MM_SLACK["f32"]
+    print(f"{tag}: eval dump's first batch vs the f32 session's kernel path: "
+          f"max_abs={err:.4f} mm, tol={tol:.4f} mm {'ok' if err <= tol else 'FAIL'}")
+    if err > tol:
+        fail(f"{tag}: the eval dump disagrees with the served kernel path")
+    del sessions
+    return dump, float(timing.group(2)), float(timing.group(3))
+
+
+def lifecycle(torch, launches, have, bare_step_ms):
+    """Phase lifecycle: the port's experiment loop at the flagship width.
+    cli.finetune for epoch 1, then again for epoch 2, which must resume from
+    checkpoint_1 (the step count continues, only epoch 2 runs, the
+    ``checkpoint`` symlink moves); cli.evaluate from that symlink (see
+    run_eval); cli.benchmark's four metrics, finite. `have` says which of
+    FILE_LIBS import here; `bare_step_ms` is the train phase's step."""
+    import os.path as osp
+    import shutil
+
+    from cs_vit_tpu_torch.cli import benchmark
+    from cs_vit_tpu_torch.config import FinetuneConfig
+    from cs_vit_tpu_torch.data import DexYCB
     from cs_vit_tpu_torch.data.fixtures import (
         _write_images,
         make_synthetic_dexycb,
         synthetic_dexycb_sequences,
     )
     from cs_vit_tpu_torch.evaluation import compute_metrics
-    from cs_vit_tpu_torch.serving import PoserSession
 
     missing = [m for m in FILE_LIBS if not have[m]]
     print(f"lifecycle: file libraries missing here: {', '.join(missing) or 'none'}")
@@ -1822,100 +1932,390 @@ def lifecycle(torch, launches, have):
                                      dexycb_root=data_root, **over))
 
     def dataset(split, cfg):
-        return None if sequences is None else in_memory_dexycb(data_root, sequences, split, 1,
-                                                               cfg)
+        if sequences is None:
+            return None
+        return DexYCB(data_root, 1, "s1", split, img_size=cfg.img_size,
+                      expansion_ratio=cfg.expansion_ratio,
+                      store=memory_store(sequences, split, "sequences/{}"))
 
     exp_dir = osp.realpath(osp.join(ckpt_root, LIFECYCLE_CONFIG["exp"]))
     steps = n_frames["train"] // LIFECYCLE_CONFIG["batch_size"]
-    runs = []
     for epoch in (1, 2):
         cfg = config(epoch=epoch)
-        state, log = printed(finetune.main, cfg, ckpt_root, log_every=1, device=DEV,
-                             dataset=dataset("train", cfg))
-        link = os.readlink(osp.join(exp_dir, "checkpoint"))
-        epochs = re.findall(r"training for epoch (\d+)/", log)
-        print(f"lifecycle: finetune run {epoch}: epochs trained {epochs}, step {state.step}, "
-              f"AdamW updates {state.optimizer.updates_taken()}, checkpoint -> {link}")
-        if epochs != [str(epoch)] or state.step != epoch * steps or link != f"checkpoint_{epoch}":
-            fail(f"lifecycle: finetune run {epoch} trained epochs {epochs} to step {state.step} "
-                 f"and left the symlink at {link}")
-        if epoch == 2 and f"resuming from {osp.join(exp_dir, 'checkpoint_1')}" not in log:
-            fail("lifecycle: the second finetune run did not resume from checkpoint_1")
-        runs.append(log)
-        del state
-    step_ms = [float(ms) for ms in re.findall(r"E2 it \d+/\d+ \| (\d+) ms/it", runs[1])]
-    if len(step_ms) != steps:
-        fail(f"lifecycle: {len(step_ms)} step lines in epoch 2, expected {steps}")
-    print(f"lifecycle_finetune_step_ms_b8 {statistics.median(step_ms):.1f} (median of epoch 2's "
-          f"{steps} steps, the loop's wall a step at 1 ms resolution: {step_ms}) on "
+        _, step_ms, wait = run_finetune(torch, "lifecycle", cfg, ckpt_root, epoch, steps,
+                                        dataset("train", cfg))
+    median = statistics.median(step_ms)
+    print(f"lifecycle_finetune_step_ms_b8 {median:.1f} (median of epoch 2's "
+          f"{steps} steps, the loop's wall a step at 1 ms resolution: {step_ms}; batches "
+          f"through device_prefetch; loader wait share {wait:.4f}); the train phase's bare "
+          f"step here {bare_step_ms:.1f} ms, excess {median - bare_step_ms:.1f} ms (with "
+          f"pageable f32 copies and the numpy crop, on an H100 80GB HBM3 at 700 W: 400.5 ms, "
+          f"bare step 189.4 ms) on "
           f"{nvidia_smi_line() if DEV == 'cuda' else 'the CPU'}")
 
     ecfg = config(epoch=2, batch_size=LIFECYCLE_EVAL_BATCH,
                   eval_ckpt=osp.join(exp_dir, "checkpoint"))
-    rows = None if sequences is None else EvalRows()
-    h5_path = osp.join(work, "eval.h5") if rows is None else None
-    sync(torch)
-    launches.reset_launch_counts()
-    _, log = printed(evaluate.main, ecfg, ckpt_root, h5_path=h5_path, device=DEV,
-                     dataset=dataset("test", ecfg), writer=rows)
-    sync(torch)
-    counts = launches.launch_counts()
-    batches = n_frames["test"] // LIFECYCLE_EVAL_BATCH
-    print(f"lifecycle: eval launches over {batches} batches {json.dumps(counts)}")
-    if DEV == "cuda":
-        check_serve_launches("lifecycle eval", counts, batches,
-                             sum(poser_config_from(ecfg).swin_config().depths))
-    timing = re.search(r"eval: (\d+) batches of \d+ in \S+ s, (\S+) ms a batch, (\S+) of the "
-                       r"wall waiting on the loader", log)
-    if (timing is None or int(timing.group(1)) != batches
-            or "loaded eval ckpt (0 unmatched leaves)" not in log):
-        fail("lifecycle: evaluate did not load the whole checkpoint or ran other batches")
-    if rows is None:
-        import h5py
-
-        with h5py.File(h5_path, "r") as f:
-            dump = {k: f[k][()] for k in f}
+    h5_path = osp.join(work, "eval.h5") if sequences is None else None
+    dump, ms, wait = run_eval(torch, launches, "lifecycle", ecfg, ckpt_root,
+                              dataset("test", ecfg), n_frames["test"] // LIFECYCLE_EVAL_BATCH,
+                              h5_path, config)
+    if h5_path:
         metrics, _ = printed(benchmark.main, h5_path)
     else:
-        dump = rows.rows()
         metrics = compute_metrics(dump["joint_cam_gt"], dump["joint_cam_pred"])
         for key in ("mprpe", "mpjpe_cs", "mpjpe_rs", "mpjpe_pa"):  # benchmark.main's lines
             print(f"{key}: {metrics[key]} mm")
-    n = batches * LIFECYCLE_EVAL_BATCH
-    shapes = {k: np.shape(v) for k, v in dump.items()}
-    print(f"lifecycle: eval rows {shapes}")
-    if shapes["joint_cam_pred"] != (n, 21, 3) or len(dump["img_paths"]) != n:
-        fail(f"lifecycle: the dump holds {shapes}, expected {n} rows")
-    if not all(np.isfinite(dump[k]).all() for k in dump if k != "img_paths"):
-        fail("lifecycle: non-finite values in the eval dump")
     if not all(math.isfinite(v) for v in metrics.values()):
         fail(f"lifecycle: non-finite metrics {metrics}")
-    print(f"lifecycle_eval_ms_per_batch_b{LIFECYCLE_EVAL_BATCH} {timing.group(2)}, "
-          f"loader wait share {timing.group(3)} (host clock, the whole eval loop) on "
+    print(f"lifecycle_eval_ms_per_batch_b{LIFECYCLE_EVAL_BATCH} {ms}, "
+          f"loader wait share {wait} (host clock, the whole eval loop) on "
           f"{nvidia_smi_line() if DEV == 'cuda' else 'the CPU'}")
-
-    # one eval batch: the kernel path against the eager path, and the dump
-    ds = dataset("test", ecfg)
-    if ds is None:
-        ds = build_datasets(ecfg, "test")
-    first = collate([ds[i] for i in range(LIFECYCLE_EVAL_BATCH)])  # the loader's first batch
-    req = tuple(first[k] for k in ("patches", "square_bboxes", "timestamp", "focal", "princpt"))
-    ckpt = osp.realpath(osp.join(exp_dir, "checkpoint"))
-    eval_cfg = config(batch_size=LIFECYCLE_EVAL_BATCH)
-    sessions = {d: PoserSession(eval_cfg, checkpoint=ckpt, batch_size=LIFECYCLE_EVAL_BATCH,
-                                dtype=dt, device=DEV)
-                for d, dt in (("bf16", "bfloat16"), ("f32", "float32"))}
-    kernel32 = sessions["f32"].predict_crops(*req)["joint_cam"][:, -1]
-    floor = compare_paths(torch, "lifecycle", sessions, "fused", req, bf16_tokens=True,
-                          bf16_witness=True)
-    err = float(np.abs(dump["joint_cam_pred"][:LIFECYCLE_EVAL_BATCH] - kernel32).max())
-    tol = 2 * floor["f32"] + SERVE_MM_SLACK["f32"]
-    print(f"lifecycle: eval dump's first batch vs the f32 session's kernel path: "
-          f"max_abs={err:.4f} mm, tol={tol:.4f} mm {'ok' if err <= tol else 'FAIL'}")
-    if err > tol:
-        fail("lifecycle: the eval dump disagrees with the served kernel path")
-    del sessions
     shutil.rmtree(work)
+
+
+def check_prefetch(torch, cfg, dataset):
+    """One batch of `cfg`'s training loader through device_prefetch: its
+    tensors bit-identical to batch_to_device's with the patches cast to bf16
+    on the card, its staging tensors pinned (on the card), and the bytes each
+    path copies."""
+    from cs_vit_tpu_torch.cli.common import batch_to_device, build_loader
+    from cs_vit_tpu_torch.parallel import device_prefetch, host_stage
+
+    loader = build_loader(cfg, dataset, shuffle=True)
+    loader.set_epoch(1)
+    host = list(loader)[0]  # the whole epoch: no loader thread left waiting
+    bf16 = torch.bfloat16
+    (got,) = list(device_prefetch([host], DEV, patches_dtype=bf16))
+    want = batch_to_device(host, torch.device(DEV))
+    want["patches"] = want["patches"].to(bf16)  # the train step's own cast, on the card
+    sync(torch)
+    for k, w in want.items():
+        g = got[k]
+        if g.dtype != w.dtype or g.device != w.device or not torch.equal(
+                g.view(torch.int16) if k == "patches" else g,
+                w.view(torch.int16) if k == "patches" else w):
+            fail(f"datasets: the prefetched {k} is not batch_to_device's bf16 {k}")
+    staged = host_stage(host, pin=DEV == "cuda", patches_dtype=bf16)
+    pinned = all(t.is_pinned() for t in staged.values())
+    if DEV == "cuda" and not pinned:
+        fail("datasets: device_prefetch's staging tensors are not pinned")
+    copied = sum(t.numel() * t.element_size() for t in staged.values())
+    pageable = sum(t.numel() * t.element_size() for t in want.values()) + \
+        want["patches"].numel() * 2
+    print(f"datasets: a prefetched b{cfg.batch_size} batch equals batch_to_device's with bf16 "
+          f"patches, bit for bit ({len(want)} tensors); staging pinned: {pinned}; "
+          f"{copied / 1e6:.2f} MB copied a batch against {pageable / 1e6:.2f} MB pageable f32")
+
+
+def host_crop_ms(frames, boxes, size, reps=5):
+    """Median ms of crop_with_square_box_np over one batch of uint8 frames,
+    on the C crop and on the numpy path, and whether the two agree to the
+    f32 rounding of the sample positions (two ulps of the longer side)."""
+    import numpy as np
+
+    from cs_vit_tpu_torch import native
+    from cs_vit_tpu_torch.ops import resample
+
+    def timed():
+        out, times = None, []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = resample.crop_with_square_box_np(frames, boxes, 1.25, size)[0]
+            times.append((time.perf_counter() - t0) * 1e3)
+        return out, statistics.median(times)
+
+    c_out, c_ms = timed()
+    available = native.native_available
+    native.native_available = lambda: False  # the numpy path, as where no compiler exists
+    try:
+        np_out, np_ms = timed()
+    finally:
+        native.native_available = available
+    err = float(np.abs(c_out - np_out).max())
+    return c_ms, np_ms, err
+
+
+def loader_contention(torch, cfg, dataset, steps=10):
+    """The bare b8 bf16 spatial step (a seeded batch already on the card)
+    timed with the host loader idle, then while `cfg`'s loader (its
+    threads decoding, augmenting and cropping `dataset`) runs epoch after
+    epoch in the background, and beside as many processes spinning on the
+    host's cores as the loader has threads (the cores taken, the
+    interpreter lock not): whether and how the loader's threads hold the
+    dispatching thread back. Returns the three medians (ms)."""
+    import os
+    import threading
+
+    from cs_vit_tpu_torch.cli.common import build_loader
+
+    model = train_model(torch)
+    state, step = new_step(torch, model, torch.bfloat16)
+    batch = train_batch(torch, 8, seed=10)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+
+    def timed():
+        times = []
+        for _ in range(steps):
+            sync(torch)
+            t0 = time.perf_counter()
+            step(state, batch, gen)
+            sync(torch)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return times
+
+    for _ in range(3):
+        step(state, batch, gen)
+    idle = timed()
+    stop, produced, errors = threading.Event(), [0], []
+
+    def load():  # whole epochs only, so that no loader is left half-drained
+        try:
+            loader, epoch = build_loader(cfg, dataset, shuffle=True), 0
+            while not stop.is_set():
+                loader.set_epoch(epoch)
+                epoch += 1
+                for _ in loader:
+                    produced[0] += 1
+        except Exception as e:  # raised below
+            errors.append(e)
+
+    t = threading.Thread(target=load, daemon=True)
+    t.start()
+    time.sleep(0.5)  # the loader's threads under way
+    n0 = produced[0]
+    busy = timed()
+    n1 = produced[0]
+    stop.set()
+    t.join(timeout=120)
+    if t.is_alive() or errors:
+        fail(f"datasets: the background loader did not stop cleanly ({errors})")
+    # as many processes spinning on the host's cores as the loader has
+    # threads: core contention without the interpreter lock
+    hogs = [subprocess.Popen([sys.executable, "-c", "while True: pass"])
+            for _ in range(cfg.num_workers)]
+    try:
+        time.sleep(0.5)
+        spun = timed()
+    finally:
+        for h in hogs:
+            h.kill()
+        for h in hogs:
+            h.wait(timeout=30)
+    med = {k: statistics.median(v) for k, v in (("idle", idle), ("busy", busy), ("spun", spun))}
+    print(f"datasets_loader_contention: bare b8 bf16 step {med['idle']:.1f} ms "
+          f"(min {min(idle):.1f}) with the loader idle, {med['busy']:.1f} ms "
+          f"(min {min(busy):.1f}) while its {cfg.num_workers} threads made {n1 - n0} b8 "
+          f"batches of 480x640 / 512x334 frames as fast as they could, {med['spun']:.1f} ms "
+          f"(min {min(spun):.1f}) beside {cfg.num_workers} processes spinning on the host's "
+          f"{os.cpu_count()} cores; median of {steps} steps each on "
+          f"{nvidia_smi_line() if DEV == 'cuda' else 'the CPU'}")
+    del model, state, step, batch
+    return med
+
+
+def datasets(torch, launches, have, bare_step_ms):
+    """Phase datasets: the flagship configuration over synthetic HO3D (480 x
+    640) and InterHand2.6M (512 x 334) trees. cli.finetune for one epoch over
+    both through device_prefetch (step count, the flagship step's launches a
+    step, finite losses, one prefetched batch bit for bit against
+    batch_to_device's bf16, pinned staging); cli.evaluate on the
+    InterHand2.6M test split and the HO3D evaluation split (see run_eval);
+    PoserSession.predict_images on 8 full HO3D frames at b1 and b8, equal bit
+    for bit to predict_crops on the port's own host crops; timings of each,
+    and the host crop of one b8 batch, C against numpy; the bare step with the
+    loader idle and busy (loader_contention)."""
+    import os.path as osp
+    import shutil
+
+    import numpy as np
+
+    from cs_vit_tpu_torch import native
+    from cs_vit_tpu_torch.config import FinetuneConfig
+    from cs_vit_tpu_torch.data import HO3D, ConcatDataset, InterHand26MSeq
+    from cs_vit_tpu_torch.data.dexycb import load_image_rgb
+    from cs_vit_tpu_torch.data.fixtures import (
+        _write_images,
+        make_synthetic_ho3d,
+        make_synthetic_ih26mseq,
+        synthetic_ho3d_sequences,
+        synthetic_ih26mseq_sequences,
+    )
+    from cs_vit_tpu_torch.ops.resample import crop_with_square_box_np
+    from cs_vit_tpu_torch.serving import PoserSession
+
+    print(f"datasets: h5py {'imports' if have['h5py'] else 'missing'}, cv2 "
+          f"{'imports' if have['cv2'] else 'missing'}; C compiler {native.find_compiler()}")
+    if not have["cv2"]:
+        fail("datasets: cv2 is missing: the HO3D and InterHand2.6M paths decode with it")
+    t0 = time.perf_counter()
+    built = native.native_available()
+    print(f"datasets: C crop built: {built} ({native.build()}, "
+          f"{time.perf_counter() - t0:.2f} s)")
+    if not built:
+        fail("datasets: the C crop did not build (no C compiler on PATH)")
+
+    work = osp.abspath(DATASETS_DIR)
+    shutil.rmtree(work, ignore_errors=True)
+    ho3d_root, ih_root = osp.join(work, "ho3d"), osp.join(work, "ih26m")
+    ckpt_root = osp.join(work, "checkpoints")
+    t0 = time.perf_counter()
+    ho3d_splits = (("train", DATASETS_HO3D_TRAIN, 1), ("evaluation", DATASETS_HO3D_EVAL, 3))
+    ih_splits = (("train", DATASETS_IH_TRAIN, 2), ("test", DATASETS_IH_TEST, 4))
+    ho3d_seqs = [seq for split, (n, T), seed in ho3d_splits
+                 for seq in synthetic_ho3d_sequences((split,), n, T, DATASETS_HO3D_HW, seed)]
+    if have["h5py"]:
+        for split, (n, T), seed in ho3d_splits:
+            make_synthetic_ho3d(ho3d_root, (split,), n, T, DATASETS_HO3D_HW, seed)
+        for split, T, seed in ih_splits:
+            make_synthetic_ih26mseq(ih_root, (split,), T, DATASETS_IH_HW, seed)
+        ih_seqs = None
+    else:
+        ih_seqs = [seq for split, T, seed in ih_splits
+                   for seq in synthetic_ih26mseq_sequences((split,), T, DATASETS_IH_HW, seed)]
+        for _, _, arrays in ho3d_seqs:
+            _write_images(ho3d_root, [r.decode() for r in arrays["img_path"]],
+                          arrays["images"])
+        for split, _, arrays in ih_seqs:
+            _write_images(osp.join(ih_root, "images", split),
+                          [r.decode() for r in arrays["img_path"]], arrays["images"])
+    n_train = sum(n * T for _, (n, T), _ in ho3d_splits[:1]) + 2 * DATASETS_IH_TRAIN
+    n_eval = {"ho3d": DATASETS_HO3D_EVAL[0] * DATASETS_HO3D_EVAL[1],
+              "interhand26m": 2 * DATASETS_IH_TEST}
+    print(f"datasets: synthetic HO3D at {DATASETS_HO3D_HW[0]}x{DATASETS_HO3D_HW[1]} and "
+          f"InterHand2.6M at {DATASETS_IH_HW[0]}x{DATASETS_IH_HW[1]}: {n_train} train frames, "
+          f"{n_eval['ho3d']} HO3D evaluation and {n_eval['interhand26m']} InterHand2.6M test "
+          f"frames, written in {time.perf_counter() - t0:.1f} s ("
+          + ("HDF5 and JPEG files)" if ih_seqs is None else
+             "JPEG files; the annotations in memory)"))
+
+    def config(**over):
+        return FinetuneConfig(**dict(DATASETS_CONFIG, backbone=BACKBONE, img_size=IMG,
+                                     ho3d_root=ho3d_root, ih26mseq_root=ih_root, **over))
+
+    def dataset(name, split, cfg):
+        """`name`'s split over the in-memory annotations (None: build_datasets
+        reads the HDF5 files)."""
+        if ih_seqs is None:
+            return None
+        kw = dict(img_size=cfg.img_size, expansion_ratio=cfg.expansion_ratio)
+        if name == "ho3d":
+            return HO3D(ho3d_root, 1, split, store=memory_store(ho3d_seqs, split,
+                                                                "sequences/{}"), **kw)
+        return InterHand26MSeq(ih_root, 1, split, store=memory_store(ih_seqs, split,
+                                                                     "{}/annots"), **kw)
+
+    # (a) finetune over both through device_prefetch
+    cfg = config(epoch=1)
+    train = None if ih_seqs is None else ConcatDataset(
+        [dataset("ho3d", "train", cfg), dataset("interhand26m", "train", cfg)])
+    steps = n_train // DATASETS_CONFIG["batch_size"]
+    sync(torch)
+    launches.reset_launch_counts()
+    _, step_ms, wait = run_finetune(torch, "datasets", cfg, ckpt_root, 1, steps, train)
+    sync(torch)
+    counts = launches.launch_counts()
+    print(f"datasets: finetune launches over {steps} steps {json.dumps(counts)}")
+    if DEV == "cuda":
+        for name, per in train_expect(sum(cfg_depths(cfg))).items():
+            if counts[name] != per * steps:
+                fail(f"datasets: {name}: {counts[name]} launches in {steps} finetune steps, "
+                     f"expected {per} a step (the flagship step's)")
+    median = statistics.median(step_ms)
+    print(f"datasets_finetune_step_ms_b8 {median:.1f} (median of {steps} steps, 1 ms "
+          f"resolution: {step_ms}); the train phase's bare step {bare_step_ms:.1f} ms, excess "
+          f"{median - bare_step_ms:.1f} ms; loader wait share {wait:.4f} (host clock) on "
+          f"{nvidia_smi_line() if DEV == 'cuda' else 'the CPU'}")
+    if train is None:
+        from cs_vit_tpu_torch.cli.common import build_datasets
+
+        train = build_datasets(cfg, "train")
+    check_prefetch(torch, cfg, train)
+    loader_contention(torch, cfg, train)
+
+    # (b) evaluation on each test split
+    ckpt = osp.join(ckpt_root, DATASETS_CONFIG["exp"], "checkpoint")
+    for name, split in (("interhand26m", "test"), ("ho3d", "evaluation")):
+        ecfg = config(data=[name], batch_size=DATASETS_EVAL_BATCH, eval_ckpt=ckpt)
+        h5_path = osp.join(work, f"eval_{name}.h5") if ih_seqs is None else None
+        _, ms, wait = run_eval(torch, launches, f"datasets {name}", ecfg, ckpt_root,
+                               dataset(name, split, ecfg), n_eval[name] // DATASETS_EVAL_BATCH,
+                               h5_path, lambda **kw: config(data=[name], **kw))
+        print(f"datasets_eval_{name}_ms_per_batch_b{DATASETS_EVAL_BATCH} {ms}, loader wait "
+              f"share {wait} (host clock, the whole eval loop) on "
+              f"{nvidia_smi_line() if DEV == 'cuda' else 'the CPU'}")
+
+    # (c) full-frame serving: 8 HO3D evaluation frames and their tight boxes
+    frames = [(osp.join(ho3d_root, rel.decode()), box, f, c)
+              for split, _, a in ho3d_seqs if split == "evaluation"
+              for rel, box, f, c in zip(a["img_path"], a["bbox_tight"], a["focal"], a["princpt"])]
+    frames = frames[:8]
+    images = np.stack([load_image_rgb(p, as_float=True) for p, _, _, _ in frames])
+    boxes, focal, princpt = (np.stack([fr[i] for fr in frames]) for i in (1, 2, 3))
+    ts = np.zeros((8,), np.float32)
+    scfg = config()
+    ckpt_file = osp.realpath(ckpt)
+    depth = sum(cfg_depths(scfg))
+    for B in (1, 8):
+        sess = PoserSession(scfg, checkpoint=ckpt_file, batch_size=B, dtype="bfloat16",
+                            device=DEV)
+        sess.warmup()
+        sync(torch)
+        launches.reset_launch_counts()
+        out = sess.predict_images(images, boxes, focal, princpt, ts)
+        sync(torch)
+        counts = launches.launch_counts()
+        if DEV == "cuda":
+            check_serve_launches(f"datasets predict_images b{B}", counts, 8 // B, depth)
+        patches, _, squares = crop_with_square_box_np(images.astype(np.float32), boxes,
+                                                      scfg.expansion_ratio, scfg.img_size)
+        crops = (patches[:, None], squares[:, None], ts[:, None], focal[:, None],
+                 princpt[:, None])
+        want = sess.predict_crops(*crops)
+        for k in want:
+            if out[k].shape != want[k][:, 0].shape or not np.array_equal(out[k], want[k][:, 0]):
+                fail(f"datasets: predict_images b{B} {k} differs from predict_crops on the "
+                     "host crops")
+        if out["joint_cam"].shape != (8, 21, 3) or not np.isfinite(out["joint_cam"]).all():
+            fail(f"datasets: predict_images b{B} joint_cam {out['joint_cam'].shape} or "
+                 "non-finite")
+        print(f"datasets: predict_images b{B} over 8 frames of 480x640: {8 // B} forwards, "
+              f"launches {json.dumps(counts)}; equal bit for bit to predict_crops on the host "
+              "crops")
+        n = B
+        img_ms, crop_ms = [], []
+        for fn, args, times in ((sess.predict_images, (images[:n], boxes[:n], focal[:n],
+                                                       princpt[:n], ts[:n]), img_ms),
+                                (sess.predict_crops, tuple(c[:n] for c in crops), crop_ms)):
+            for rep in range(23):
+                sync(torch)
+                t0 = time.perf_counter()
+                fn(*args)
+                sync(torch)
+                if rep >= 3:
+                    times.append((time.perf_counter() - t0) * 1e3)
+        print(f"datasets_predict_images_b{B}_ms {statistics.median(img_ms):.3f} (min "
+              f"{min(img_ms):.3f}); predict_crops on the same crops "
+              f"{statistics.median(crop_ms):.3f} (min {min(crop_ms):.3f}); 20 calls after 3 on "
+              f"{nvidia_smi_line() if DEV == 'cuda' else 'the CPU'}")
+        del sess
+
+    # (d) the host crop of one b8 batch of 480 x 640 uint8 frames
+    u8 = np.stack([load_image_rgb(p, as_float=False) for p, _, _, _ in frames])
+    c_ms, np_ms, err = host_crop_ms(u8, boxes, IMG)
+    print(f"datasets_host_crop_b8_ms C {c_ms:.3f}, numpy {np_ms:.3f} ({np_ms / c_ms:.1f}x; "
+          f"crop_with_square_box_np of 8 uint8 frames of 480x640 to {IMG}x{IMG}, median of 5, "
+          f"on the host CPU of {nvidia_smi_line() if DEV == 'cuda' else 'no card'}; the two "
+          f"paths differ by {err:.2e})")
+    if err > 2 * float(np.spacing(np.float32(max(DATASETS_HO3D_HW)))):
+        fail("datasets: the C crop and the numpy crop disagree beyond the rounding of the "
+             "sample positions")
+    shutil.rmtree(work)
+
+
+def cfg_depths(cfg):
+    from cs_vit_tpu_torch.cli.common import poser_config_from
+
+    return poser_config_from(cfg).swin_config().depths
 
 
 def temporal_batch(torch, B, T, seed):
@@ -2470,11 +2870,12 @@ def main() -> int:
     with phase("spenc"):
         spenc(torch, fb)
 
+    have = {m: importlib.util.find_spec(m) is not None for m in FILE_LIBS}
     with phase("lifecycle"):
-        import importlib.util
+        lifecycle(torch, launches, have, step_ms)
 
-        lifecycle(torch, launches, {m: importlib.util.find_spec(m) is not None
-                                    for m in FILE_LIBS})
+    with phase("datasets"):
+        datasets(torch, launches, have, step_ms)
 
     with phase("temporal"):
         temporal = {name: check_temporal(torch, launches, sup, T)

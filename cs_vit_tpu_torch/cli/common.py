@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from ..config import FinetuneConfig
-from ..data import ConcatDataset, DataLoader, DexYCB
+from ..data import HO3D, ConcatDataset, DataLoader, DexYCB, InterHand26MSeq
 from ..mano import ManoLayer, find_and_load
 from ..models import Poser, PoserConfig
 from ..utils.dist import process_count, process_index
@@ -179,19 +179,32 @@ def build_datasets(cfg: FinetuneConfig, split: str) -> ConcatDataset:
     data = cfg.data if isinstance(cfg.data, (list, tuple)) else [cfg.data]
     datasets = []
     for name in data:
-        if name in ("interhand26m", "ho3d"):
-            raise NotImplementedError(
-                f"dataset {name!r} is not ported to cs_vit_tpu_torch yet (ROADMAP queue 1, "
-                "item 4); 'dexycb' is")
-        if name != "dexycb":
-            raise ValueError(f"unknown dataset: {name}")
-        datasets.append(
-            DexYCB(
-                cfg.dexycb_root, num_frames, "s1",
-                "train" if split == "train" else "test",
-                img_size=cfg.img_size, expansion_ratio=cfg.expansion_ratio,
+        if name == "interhand26m":
+            datasets.append(
+                InterHand26MSeq(
+                    cfg.ih26mseq_root, num_frames,
+                    "train" if split == "train" else "test",
+                    img_size=cfg.img_size, expansion_ratio=cfg.expansion_ratio,
+                )
             )
-        )
+        elif name == "ho3d":
+            datasets.append(
+                HO3D(
+                    cfg.ho3d_root, num_frames,
+                    "train" if split == "train" else "evaluation",
+                    img_size=cfg.img_size, expansion_ratio=cfg.expansion_ratio,
+                )
+            )
+        elif name == "dexycb":
+            datasets.append(
+                DexYCB(
+                    cfg.dexycb_root, num_frames, "s1",
+                    "train" if split == "train" else "test",
+                    img_size=cfg.img_size, expansion_ratio=cfg.expansion_ratio,
+                )
+            )
+        else:
+            raise ValueError(f"unknown dataset: {name}")
         print(f"Added {name}")
     return ConcatDataset(datasets)
 

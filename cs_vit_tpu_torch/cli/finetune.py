@@ -7,8 +7,10 @@ python -m cs_vit_tpu_torch.cli.finetune --exp myexp --phase spatial \
 One process on one device: the phase's train step (``train.make_train_step``,
 with its NaN skip and grad clip) over the host loader's batches, a ``.pt``
 checkpoint per epoch with a ``checkpoint`` symlink, resume from that symlink,
-and the warmup-cosine or constant lr. A JAX orbax checkpoint comes across
-through ``tools/export_torch_ckpt.py``.
+and the warmup-cosine or constant lr. Batches reach the card through
+``parallel.device_prefetch`` (pinned memory, a side stream, ``patches``
+cast to the compute dtype on the host), as the JAX loop's do. A JAX orbax
+checkpoint comes across through ``tools/export_torch_ckpt.py``.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 
 from ..config import FinetuneConfig
 from ..models import init_poser_weights
+from ..parallel import device_prefetch
 from ..serving import INIT_SEED, load_checkpoint_state_dict
 from ..train import (
     TrainState,
@@ -40,7 +43,6 @@ from ..utils.dist import process_count, process_index
 from ..utils.logging import TBLogger, nop, print_grouped_losses, wrap_prefix_print
 from ..utils.profiling import StepTimer
 from .common import (
-    batch_to_device,
     build_datasets,
     build_loader,
     build_model,
@@ -134,8 +136,11 @@ def main(cfg: FinetuneConfig, ckpt_root: str = "./checkpoints", log_every: int =
         loader.set_epoch(epoch)
         t_log = time.monotonic()
         meter = StepTimer(warmup=2)
-        for it, host_batch in enumerate(loader):
-            batch = batch_to_device(host_batch, device)
+        loader_wait, t_ready = 0.0, time.perf_counter()
+        for it, batch in enumerate(
+            device_prefetch(loader, device, patches_dtype=compute_dtype)
+        ):
+            loader_wait += time.perf_counter() - t_ready
             state, metrics = train_step(state, batch, generator, latent_generator)
             meter.update(cfg.batch_size)
 
@@ -153,11 +158,14 @@ def main(cfg: FinetuneConfig, ckpt_root: str = "./checkpoints", log_every: int =
                     metrics["scalar_logs"], print_,
                 )
                 t_log = time.monotonic()
+            t_ready = time.perf_counter()
 
         t1 = datetime.datetime.now()
         print_(
             f"epoch {epoch} ends at {t1:%Y-%m-%d_%H:%M:%S}, cost {t1 - t0}"
-            f" ({meter.samples_per_sec:.1f} samples/s)"
+            f" ({meter.samples_per_sec:.1f} samples/s, "
+            f"{loader_wait / max((t1 - t0).total_seconds(), 1e-9):.4f} of the wall waiting "
+            "on the loader)"
         )
 
         state.epoch = epoch

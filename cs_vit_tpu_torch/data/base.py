@@ -5,7 +5,8 @@ Replaces torch Dataset/DataLoader/DistributedSampler with a numpy pipeline:
 * sliding-window index with cumsum + binary search (ref `DexYCB.py:60-85`)
 * epoch-seeded shuffling and deterministic per-process sharding
   (ref `DistributedSampler`, `scripts/finetune.py:109,312`)
-* background-thread prefetch of collated numpy batches; the caller moves them to the device.
+* background-thread prefetch of collated numpy batches (an item's exception
+  reaches the consumer); the caller moves them to the device.
 """
 
 from __future__ import annotations
@@ -200,11 +201,14 @@ class DataLoader:
             return
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         sentinel = object()
+        err: list = []
 
         def worker():
             try:
                 for b in self._batches():
                     q.put(b)
+            except Exception as e:  # raised in the consumer below
+                err.append(e)
             finally:
                 q.put(sentinel)
 
@@ -216,3 +220,5 @@ class DataLoader:
                 break
             yield item
         t.join()
+        if err:
+            raise err[0]

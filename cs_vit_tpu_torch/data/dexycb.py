@@ -42,6 +42,13 @@ def load_image_rgb(path: str, as_float: bool = True) -> np.ndarray:
     return img.astype(np.float32) / 255.0 if as_float else img
 
 
+def open_h5(path: str):
+    """The HDF5 file at `path`, open for reading."""
+    import h5py
+
+    return h5py.File(path, "r")
+
+
 class DexYCB(SlidingWindowDataset):
     FPS_STEP_MS = 33.333
 
@@ -55,7 +62,10 @@ class DexYCB(SlidingWindowDataset):
         expansion_ratio: float = 1.25,
         compat_pose_slice: bool = True,
         seed: int = 0,
+        store=None,
     ):
+        """`store`, when given, stands in for the HDF5 file (anything that
+        answers ``store[path]`` and ``.items()`` as an ``h5py.File`` does)."""
         super().__init__(num_frames)
         self.root = root
         self.protocol = protocol
@@ -68,8 +78,8 @@ class DexYCB(SlidingWindowDataset):
         pca = np.load(osp.join(_ASSET_DIR, "mano_lr_pca.npz"))
         self.mano_pca = {k: pca[k].astype(np.float32) for k in ("left", "right")}
 
-        import h5py
-        self.h5 = h5py.File(osp.join(root, f"{protocol}_{data_split}.h5"), "r")
+        self.h5 = store if store is not None else open_h5(
+            osp.join(root, f"{protocol}_{data_split}.h5"))
         entries = []
         for name, seq in self.h5["sequences"].items():
             entries.append(

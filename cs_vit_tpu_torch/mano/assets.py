@@ -152,6 +152,40 @@ def synthetic_assets(seed: int = 0, is_rhand: bool = True) -> ManoAssets:
     )
 
 
+def save_mano_pkl(assets: ManoAssets, path: str) -> str:
+    """Serialize :class:`ManoAssets` into an official-layout MANO pickle.
+
+    Writes a plain-numpy dict in the SMPL/MANO on-disk layout (the inverse
+    of :func:`load_mano_pkl`): ``posedirs`` as ``[V, 3, 135]``, the root
+    parent in ``kintree_table`` as the uint32 sentinel the real pickles use.
+    The output is loadable both by :func:`load_mano_pkl` and by
+    ``smplx.create(..., 'mano')``: a bridge for cross-checking an LBS
+    against the reference's smplx implementation without licensed data.
+    """
+    V = assets.v_template.shape[0]
+    kintree = np.zeros((2, assets.parents.shape[0]), dtype=np.uint32)
+    kintree[0] = assets.parents.astype(np.int64) % (1 << 32)  # -1 -> sentinel
+    kintree[1] = np.arange(assets.parents.shape[0], dtype=np.uint32)
+    data = {
+        "v_template": np.asarray(assets.v_template, np.float64),
+        "shapedirs": np.asarray(assets.shapedirs, np.float64),
+        # stored layout is [V, 3, P]; load_mano_pkl re-flattens to [P, V*3]
+        "posedirs": np.asarray(assets.posedirs, np.float64).T.reshape(V, 3, -1),
+        "J_regressor": np.asarray(assets.j_regressor, np.float64),
+        "weights": np.asarray(assets.lbs_weights, np.float64),
+        "hands_mean": np.asarray(assets.hands_mean, np.float64),
+        "hands_components": np.asarray(assets.hands_components, np.float64),
+        "hands_coeffs": np.zeros((0, 45), np.float64),
+        "kintree_table": kintree,
+        "f": np.asarray(assets.faces, np.uint32),
+        "bs_style": "lbs",
+        "bs_type": "lrotmin",
+    }
+    with open(path, "wb") as f:
+        pickle.dump(data, f, protocol=2)
+    return path
+
+
 _SEARCH_NAMES = {
     True: ("MANO_RIGHT.pkl", "mano/MANO_RIGHT.pkl", "mano_v1_2/models/MANO_RIGHT.pkl"),
     False: ("MANO_LEFT.pkl", "mano/MANO_LEFT.pkl", "mano_v1_2/models/MANO_LEFT.pkl"),
@@ -179,3 +213,18 @@ def find_and_load(
             f"MANO model not found under {roots}; set MANO_MODEL_DIR or pass model_path"
         )
     return synthetic_assets(is_rhand=is_rhand)
+
+
+def fix_left_shapedirs(left: ManoAssets, right: ManoAssets) -> ManoAssets:
+    """Apply the left-hand shapedirs sign-flip fix (smplx issue #48).
+
+    Mirrors reference `cs_vit/utils/mano.py:60-71`: if left/right first
+    shape-basis columns are suspiciously similar, negate the left one.
+    """
+    if np.abs(left.shapedirs[:, 0, :] - right.shapedirs[:, 0, :]).sum() < 1:
+        left = dataclasses.replace(
+            left, shapedirs=np.concatenate(
+                [-left.shapedirs[:, 0:1, :], left.shapedirs[:, 1:, :]], axis=1
+            )
+        )
+    return left

@@ -1,5 +1,5 @@
-"""Host-side image crop and resample with kornia's sampling convention (the
-numpy half of ``cs_vit_tpu/ops/resample.py``).
+"""Image crop and resample with kornia's sampling convention (port of
+``cs_vit_tpu/ops/resample.py``'s crop functions).
 
 The reference's pixel path runs through kornia
 (``crop_and_resize(..., align_corners=True)`` at ``cs_vit/utils/img.py:376-385``
@@ -11,9 +11,13 @@ and the rotated-corner train crops at ``cs_vit/dataset/DexYCB.py:208-210``):
 * bilinear interpolation with align_corners=True (integer coordinates are
   pixel centres) and zero padding outside the source.
 
-This module is the numpy path only. The JAX package's version may take its C
-fast crop instead (``cs_vit_tpu/native``), which computes the sample position
-in f32 where this one does in f64, and so differs by that rounding.
+Three implementations, one math: the host crop ``crop_and_resize_np`` takes
+the C crop (``cs_vit_tpu_torch/native``, the JAX package's C source, so both
+packages give the same bits) for float32 and uint8 frames wherever a C
+compiler exists, and its numpy path (f64 sample positions, uint8 converted
+to float first) only where none does; ``crop_and_resize`` is the device
+crop, a plain torch gather on the tensors' own device (``jnp`` gather code
+in the JAX package, not a Pallas kernel).
 """
 
 from __future__ import annotations
@@ -21,6 +25,9 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+import torch
+
+from .. import native
 
 
 def _sample_coords(corners: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
@@ -74,16 +81,55 @@ def crop_and_resize_np(
     corners: np.ndarray,  # [N,4,2] (tl,tr,br,bl) in pixel coords
     out_size: Tuple[int, int],
 ) -> np.ndarray:
-    """Host-side kornia-parity crop+resize -> [N,h,w,C] in the images' float
-    dtype (uint8 sources are converted to float32 in [0,1] first)."""
+    """Host-side kornia-parity crop+resize -> [N,h,w,C] float32 in [0,1].
+
+    float32 and uint8 frames go through the C crop (uint8 interpolated raw
+    and scaled by 1/255 in the kernel, so decoded frames skip the full-frame
+    float conversion), as in the JAX package; other dtypes, and every frame
+    where no C compiler exists, take the numpy path."""
     h, w = out_size
-    if images.dtype == np.uint8:
+    if images.dtype in (np.float32, np.uint8) and native.native_available():
+        return native.crop_affine_bilinear_batch(images, np.asarray(corners), h, w)
+    if images.dtype == np.uint8:  # numpy path: convert once
         images = images.astype(np.float32) / 255.0
     out = np.empty((images.shape[0], h, w, images.shape[-1]), dtype=images.dtype)
     for i in range(images.shape[0]):
         grid = _sample_coords(corners[i], h, w)
         out[i] = _bilinear_gather_np(images[i], grid)
     return out
+
+
+def crop_and_resize(
+    images: torch.Tensor,   # [N,H,W,C] float
+    corners: torch.Tensor,  # [N,4,2] (tl,tr,br,bl) in pixel coords
+    out_size: Tuple[int, int],
+) -> torch.Tensor:
+    """The device crop+resize: [N,h,w,C] in the images' dtype, on their
+    device (``cs_vit_tpu/ops/resample.py:crop_and_resize``, its vmapped
+    gather written batched; positions in the corners' dtype)."""
+    h, w = out_size
+    N, H, W, _ = images.shape
+    corners = corners.to(images.device)
+    tl, tr, bl = corners[:, 0], corners[:, 1], corners[:, 3]
+    xs = torch.linspace(0.0, 1.0, w, dtype=corners.dtype, device=corners.device)
+    ys = torch.linspace(0.0, 1.0, h, dtype=corners.dtype, device=corners.device)
+    grid = (tl[:, None, None, :] + xs[None, None, :, None] * (tr - tl)[:, None, None, :]
+            + ys[None, :, None, None] * (bl - tl)[:, None, None, :])  # [N,h,w,2] (x, y)
+    x, y = grid[..., 0], grid[..., 1]
+    x0, y0 = torch.floor(x), torch.floor(y)
+    wx, wy = (x - x0)[..., None], (y - y0)[..., None]
+    x0, y0 = x0.long(), y0.long()
+    n = torch.arange(N, device=images.device)[:, None, None]
+
+    def fetch(yi, xi):
+        valid = (xi >= 0) & (xi < W) & (yi >= 0) & (yi < H)
+        v = images[n, yi.clamp(0, H - 1), xi.clamp(0, W - 1)]
+        return v * valid[..., None]
+
+    return (fetch(y0, x0) * (1 - wx) * (1 - wy)
+            + fetch(y0, x0 + 1) * wx * (1 - wy)
+            + fetch(y0 + 1, x0) * (1 - wx) * wy
+            + fetch(y0 + 1, x0 + 1) * wx * wy)
 
 
 def expand_bbox_square(bboxes: np.ndarray, expansion_ratio: float = 1.0) -> np.ndarray:

@@ -16,8 +16,8 @@ images are bf16.
 Checkpoints are reference-style ``.pt`` files (``{"model"|"merged":
 state_dict}``, as ``tools/export_torch_ckpt.py`` writes them from an orbax
 checkpoint of the JAX package, and ``train.save_checkpoint`` writes them) or
-a plain state dict. ``predict_images``
-(host-side square crop) arrives with the host-pipeline slice.
+a plain state dict. ``predict_images`` takes full frames and tight boxes
+through the host square crop (the C crop) into ``predict_crops``.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ import torch
 from .cli.common import build_model, resolve_device
 from .config import FinetuneConfig
 from .models import init_poser_weights
+from .ops.resample import crop_with_square_box_np
 from .train.checkpoint import latest_checkpoint
 from .train.convert import load_reference_state_dict
 
@@ -155,3 +156,29 @@ class PoserSession:
             )
             outs.append({k: v[: e - s].float().cpu().numpy() for k, v in result.items()})
         return {k: np.concatenate([o[k] for o in outs], axis=0) for k in outs[0]}
+
+    def predict_images(
+        self,
+        images: np.ndarray,      # [N, H, W, 3] float in [0,1]
+        tight_bboxes: np.ndarray,  # [N, 4] xyxy
+        focal: np.ndarray,       # [N, 2]
+        princpt: np.ndarray,     # [N, 2]
+        timestamps: Optional[np.ndarray] = None,  # [N] ms
+    ) -> Dict[str, np.ndarray]:
+        """Full-frame API: host-side square crop (the C crop) + predict.
+
+        Single-frame (T=1); returns per-image outputs with the T axis dropped.
+        """
+        N = images.shape[0]
+        patches, _, squares = crop_with_square_box_np(
+            images.astype(np.float32), np.asarray(tight_bboxes, np.float32),
+            self.cfg.expansion_ratio, self.cfg.img_size,
+        )
+        ts = np.zeros((N, 1), np.float32) if timestamps is None else \
+            np.asarray(timestamps, np.float32).reshape(N, 1)
+        out = self.predict_crops(
+            patches[:, None], squares[:, None], ts,
+            np.asarray(focal, np.float32)[:, None],
+            np.asarray(princpt, np.float32)[:, None],
+        )
+        return {k: v[:, 0] for k, v in out.items()}

@@ -13,9 +13,8 @@ Tolerances:
 - Eval parity: one set of JAX parameters is saved as an orbax checkpoint
   for ``cs_vit_tpu.cli.evaluate.main`` and exported by
   ``tools/export_torch_ckpt.py`` into the ``.pt`` the port's
-  ``evaluate.main`` reads; both read the same fixture (the JAX package's
-  crops on its numpy path, so that both see the same pixels). Paths and
-  ground truth match exactly. The predictions are held against JAX's own
+  ``evaluate.main`` reads; both read the same fixture through their C crops
+  (one C source: the same pixels). Paths and ground truth match exactly. The predictions are held against JAX's own
   float64 predictions of the same batches: the port may miss them by twice
   the larger of JAX's own f32 miss (its dump against its float64 result)
   and 1e-4 of the output's scale plus 1e-4, as
@@ -37,7 +36,6 @@ import numpy as np
 import pytest
 import torch
 
-from cs_vit_tpu import native as j_native
 from cs_vit_tpu.cli import evaluate as j_evaluate
 from cs_vit_tpu.cli.common import build_datasets as j_build_datasets
 from cs_vit_tpu.cli.common import build_loader as j_build_loader
@@ -59,7 +57,11 @@ from cs_vit_tpu_torch.cli.common import (
     read_safetensors,
 )
 from cs_vit_tpu_torch.config import FinetuneConfig
-from cs_vit_tpu_torch.data.fixtures import make_synthetic_dexycb
+from cs_vit_tpu_torch.data.fixtures import (
+    make_synthetic_dexycb,
+    make_synthetic_ho3d,
+    make_synthetic_ih26mseq,
+)
 from cs_vit_tpu_torch.evaluation import reproject_pinhole
 from cs_vit_tpu_torch.models.swinv2 import SwinV2, SwinV2Config
 from cs_vit_tpu_torch.train.optim import PhaseAdamW
@@ -336,12 +338,10 @@ def eval_parity(env):
     printed(export_torch_ckpt.main, orbax_dir, os.path.join(exp_dir, "config.json"), pt_path)
 
     out = {}
-    with pytest.MonkeyPatch.context() as mp:  # the JAX package's crops on its numpy path
-        mp.setattr(j_native, "crop_affine_bilinear_batch", lambda *a, **k: None)
-        printed(j_evaluate.main, make_cfg(env, cls=JFinetuneConfig, exp="parity",
-                                          attention_impl="xla", eval_ckpt=orbax_dir),
-                ckpt_root, h5_path=str(base / "jax.h5"))
-        batches = list(j_build_loader(jcfg, j_build_datasets(jcfg, "test"), shuffle=False))
+    printed(j_evaluate.main, make_cfg(env, cls=JFinetuneConfig, exp="parity",
+                                      attention_impl="xla", eval_ckpt=orbax_dir),
+            ckpt_root, h5_path=str(base / "jax.h5"))
+    batches = list(j_build_loader(jcfg, j_build_datasets(jcfg, "test"), shuffle=False))
     _, out["log"] = printed(evaluate.main, make_cfg(env, exp="parity", eval_ckpt=pt_path),
                             ckpt_root, h5_path=str(base / "port.h5"), device="cpu")
     for name in ("jax", "port"):
@@ -394,9 +394,18 @@ def test_evaluate_protocol_guard(env):
 
 
 @pytest.mark.parametrize("name", ["ho3d", "interhand26m"])
-def test_unported_datasets_are_refused(env, name):
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        build_datasets(make_cfg(env, data=[name]), "train")
+def test_unported_datasets_are_refused(env, name, tmp_path):
+    """Every dataset the JAX package accepts is ported (this one's items are
+    held in tests/test_torch_datasets.py); a name it does not accept is
+    refused."""
+    with pytest.raises(ValueError, match="unknown dataset"):
+        build_datasets(make_cfg(env, data=[name.upper()]), "train")
+    roots = {"ho3d": ("ho3d_root", make_synthetic_ho3d),
+             "interhand26m": ("ih26mseq_root", make_synthetic_ih26mseq)}
+    field, make = roots[name]
+    ds, log = printed(build_datasets,
+                      make_cfg(env, data=[name], **{field: make(str(tmp_path / name))}), "train")
+    assert f"Added {name}" in log and len(ds) > 0
 
 
 @pytest.mark.parametrize("field,value", [("tp", 2), ("remat", True)])

@@ -1,7 +1,8 @@
 """Import hygiene: the port and chip_smoke.py never import JAX or cs_vit_tpu,
 and importing them loads none of the file libraries (h5py, cv2,
 tensorboardX, safetensors) that the card's machine may lack: the functions
-that read or write those formats import them.
+that read or write those formats import them. Nor does importing them build
+or load the C crop (``cs_vit_tpu_torch.native``): it is built at first use.
 
 Each check runs in a fresh interpreter, so nothing the test session already
 imported can hide an import.
@@ -22,6 +23,8 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "cs_vit_tpu", "h5py", "cv2",
                                     "tensorboardX", "safetensors"))
 assert not bad, bad
+native = sys.modules.get("cs_vit_tpu_torch.native")
+assert native is None or native._loaded == {{}}, native._loaded
 print("ok", {count})
 """
 
@@ -41,8 +44,13 @@ def test_every_port_module_imports_without_jax():
         "'cs_vit_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
     )
-    out = _run(_CHECK.format(imports=imports, count="len(mods)"))
-    assert int(out.split()[-1]) >= 15  # every module of the slice was imported
+    out = _run(_CHECK.format(imports=imports, count="' '.join(mods)"))
+    mods = set(out.split()[1:])
+    assert len(mods) >= 15  # every module of the package was imported
+    for name in ("native", "parallel", "parallel.prefetch", "ops.heatmap", "data.ho3d",
+                 "data.ho3d_fs", "data.ih26m_seq", "data.ih26m_legacy",
+                 "data.ih26m_legacy_aug", "data.mano_gt", "data.fixtures"):
+        assert f"cs_vit_tpu_torch.{name}" in mods, name
 
 
 @pytest.mark.parametrize("module", ["chip_smoke"])

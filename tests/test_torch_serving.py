@@ -4,6 +4,9 @@ Both sessions serve the same weights (the JAX session's, exported to a
 reference-style ``.pt``) at batch 4; N=6 crops make a full chunk and a
 chunk padded by repeating its last row. f32 on the CPU; tolerance as in
 test_torch_poser.py (1e-4 of each output's largest magnitude, + 1e-4).
+``predict_images`` (full frames and tight boxes through each package's C
+crop: the same pixels) is held to the same tolerance, and exactly against
+the port's own ``predict_crops`` on its own host crops.
 """
 
 import json
@@ -17,6 +20,7 @@ from cs_vit_tpu.config import FinetuneConfig as JFinetuneConfig
 from cs_vit_tpu.serving import PoserSession as JPoserSession
 from cs_vit_tpu.train.convert import export_poser_state_dict
 from cs_vit_tpu_torch.config import FinetuneConfig
+from cs_vit_tpu_torch.ops.resample import crop_with_square_box_np
 from cs_vit_tpu_torch.serving import PoserSession
 
 CFG = dict(exp="serve", backbone="test", img_size=32, phase="inference",
@@ -101,3 +105,39 @@ def test_config_json_roundtrip_and_unknown_keys(tmp_path):
     path.write_text(json.dumps(dict(cfg.to_dict(), no_such_key=1)))
     with pytest.raises(KeyError):
         FinetuneConfig.from_json_file(str(path))
+
+
+def _frames(rng, N=6, hw=(120, 160)):
+    c = rng.uniform(30, 90, size=(N, 2))
+    half = rng.uniform(8, 25, size=(N, 2))
+    return (
+        rng.uniform(size=(N,) + hw + (3,)).astype(np.float32),
+        np.concatenate([c - half, c + half], 1).astype(np.float32),
+        rng.uniform(200, 300, size=(N, 2)).astype(np.float32),
+        rng.uniform(60, 100, size=(N, 2)).astype(np.float32),
+        rng.uniform(0, 100, size=(N,)).astype(np.float32),
+    )
+
+
+def test_predict_images_matches_jax(jax_session_and_ckpt, rng):
+    jsess, exp = jax_session_and_ckpt
+    sess = PoserSession(FinetuneConfig(**CFG), checkpoint=str(exp / "checkpoint.pt"),
+                        batch_size=4, dtype="float32", device="cpu")
+    images, boxes, focal, princpt, ts = _frames(rng)
+    for stamps in (None, ts):
+        out = sess.predict_images(images, boxes, focal, princpt, stamps)
+        assert out["joint_cam"].shape == (6, 21, 3) and out["verts_cam"].shape == (6, 778, 3)
+        _assert_close(out, jsess.predict_images(images, boxes, focal, princpt, stamps))
+
+
+def test_predict_images_is_predict_crops_on_the_host_crops(rng):
+    sess = PoserSession(FinetuneConfig(**CFG), batch_size=4, dtype="float32", device="cpu")
+    images, boxes, focal, princpt, ts = _frames(rng, N=5)
+    out = sess.predict_images(images, boxes, focal, princpt, ts)
+    patches, _, squares = crop_with_square_box_np(images, boxes, sess.cfg.expansion_ratio,
+                                                  sess.cfg.img_size)
+    want = sess.predict_crops(patches[:, None], squares[:, None], ts[:, None],
+                              focal[:, None], princpt[:, None])
+    assert set(out) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(out[k], want[k][:, 0], err_msg=k)
