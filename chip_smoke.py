@@ -89,6 +89,27 @@ order, failing (non-zero exit, no result line) at the first phase that fails:
    with the loader idle and with it busy; the lifecycle phase (8)
    prints its finetune step beside the loop's earlier reading with pageable
    copies and the numpy crop;
+9a. ``parallel``: the flagship bf16 step at b8 with ``remat`` and without,
+   from the same weights, batch and droppath generator (loss, grad norm,
+   every grad and the generator's state afterwards bit-identical; the
+   backward kernels' launches unchanged, the forward kernels' up by one
+   served forward's for the recomputation), with both steps' time and peak memory at b8 and at
+   the largest batch the step without remat fits; ``cli.finetune`` on the
+   lifecycle fixture under a torchrun-style environment with WORLD_SIZE=1
+   (an NCCL group, the step's average an NCCL all-reduce), its checkpoint
+   bit-identical to the run without a group; two gloo ranks on the one card
+   (NCCL refuses two ranks on one device), each on half of a b8 batch for
+   DP_STEPS steps, bit-identical to each other and to a one-process
+   emulation of the averaged step, each launching the flagship step's
+   kernels;
+9b. ``pretrain``: ``cli.pretrain_ti`` in each mode (tivit, dino, ti) at the
+   CLI's defaults (ViT-B/16 and a DINOv2 of its width, img 224, b64) over
+   synthetic 480 x 640 JPEGs, one epoch of PRETRAIN_STEPS steps; each mode's
+   step time and peak memory on one batch; tivit's loss falls over
+   PRETRAIN_CURVE steps; dino moves only the student's MLPs, keeps the
+   teacher at the EMA of the student bit for bit and moves the centre; ti
+   moves only the transformation group; one f32 TIViT forward on the card
+   against the CPU within a floor measured in the run;
 10. trains the flagship model in the temporal phase at batch 8, realtime T=3 and full T=5 on
    the attention-only kernel: the f32 backbone tokens and the f32 step
    against the eager path,
@@ -274,6 +295,23 @@ DATASETS_HO3D_HW, DATASETS_IH_HW = (480, 640), (512, 334)
 DATASETS_HO3D_TRAIN, DATASETS_HO3D_EVAL = (2, 8), (2, 16)
 DATASETS_IH_TRAIN, DATASETS_IH_TEST = 8, 16
 DATASETS_EVAL_BATCH = 16
+# the parallel phase (PARALLEL_DIR, git-ignored): the flagship b8 step with
+# and without remat (PARALLEL_TIMED_STEPS timed), the largest batch the plain
+# step fits (found within PARALLEL_MAX_TRIES tries), cli.finetune in a
+# one-rank NCCL world on the lifecycle fixture, and two gloo ranks on the one
+# card, DP_STEPS steps each on half of a b8 batch (DP_SEED + rank seeds a
+# rank's droppath), within DP_TIMEOUT seconds
+PARALLEL_DIR = "_chip_smoke_parallel"
+PARALLEL_TIMED_STEPS, PARALLEL_MAX_TRIES = 5, 12
+DP_STEPS, DP_SEED, DP_TIMEOUT = 3, 100, 300
+# the pretrain phase (PRETRAIN_DIR, git-ignored): cli.pretrain_ti with
+# PRETRAIN_ARGS on top of the CLI's defaults (ViT-B/16 widths, img 224, b64),
+# one epoch of PRETRAIN_STEPS steps over PRETRAIN_BATCH x PRETRAIN_STEPS
+# synthetic PRETRAIN_HW JPEGs, then PRETRAIN_CURVE tivit steps on one batch
+PRETRAIN_DIR = "_chip_smoke_pretrain"
+PRETRAIN_HW, PRETRAIN_BATCH, PRETRAIN_STEPS, PRETRAIN_CURVE = (480, 640), 64, 4, 10
+PRETRAIN_ARGS = []
+TIVIT_CARD_REL = {"encode": 1e-5, "total": 1e-4, "latent": 1e-4, "support": 1e-4}
 # the file libraries the data and eval paths import where they read or
 # write files; without h5py the phase feeds the same loops through their
 # dataset= and writer= arguments (the annotations in memory, the frames as
@@ -1413,15 +1451,16 @@ def train_batch(torch, B, seed):
     return {k: torch.from_numpy(v).to(DEV) for k, v in batch.items()}
 
 
-def train_model(torch, seed=0):
+def train_model(torch, seed=0, remat=False):
     """The flagship Poser with seeded random f32 weights on the card, in the
-    spatial phase's configuration (kernel path)."""
+    spatial phase's configuration (kernel path); `remat` recomputes each
+    backbone block in the backward."""
     from cs_vit_tpu_torch.cli.common import build_model
     from cs_vit_tpu_torch.config import FinetuneConfig
     from cs_vit_tpu_torch.models import init_poser_weights
 
     cfg = FinetuneConfig(exp="chip_smoke", backbone=BACKBONE, img_size=IMG, phase="spatial",
-                         attention_impl="fused")
+                         attention_impl="fused", remat=remat)
     model = build_model(cfg)
     init_poser_weights(model, seed)
     return model.to(DEV)
@@ -1879,33 +1918,23 @@ def run_eval(torch, launches, tag, ecfg, ckpt_root, dataset, n_batches, h5_path,
     return dump, float(timing.group(2)), float(timing.group(3))
 
 
-def lifecycle(torch, launches, have, bare_step_ms):
-    """Phase lifecycle: the port's experiment loop at the flagship width.
-    cli.finetune for epoch 1, then again for epoch 2, which must resume from
-    checkpoint_1 (the step count continues, only epoch 2 runs, the
-    ``checkpoint`` symlink moves); cli.evaluate from that symlink (see
-    run_eval); cli.benchmark's four metrics, finite. `have` says which of
-    FILE_LIBS import here; `bare_step_ms` is the train phase's step."""
+def dexycb_fixture(work, have, tag):
+    """The lifecycle's synthetic DexYCB tree (LIFECYCLE_TRAIN and
+    LIFECYCLE_TEST sequences of LIFECYCLE_HW frames) under `work`: HDF5 and
+    JPEG files where h5py imports, else the JPEG files with the annotations
+    in memory. Returns (its root, frames per split, ``dataset(split, cfg)``:
+    the in-memory dataset, or None where ``build_datasets`` reads the
+    files)."""
     import os.path as osp
-    import shutil
 
-    from cs_vit_tpu_torch.cli import benchmark
-    from cs_vit_tpu_torch.config import FinetuneConfig
     from cs_vit_tpu_torch.data import DexYCB
     from cs_vit_tpu_torch.data.fixtures import (
         _write_images,
         make_synthetic_dexycb,
         synthetic_dexycb_sequences,
     )
-    from cs_vit_tpu_torch.evaluation import compute_metrics
 
-    missing = [m for m in FILE_LIBS if not have[m]]
-    print(f"lifecycle: file libraries missing here: {', '.join(missing) or 'none'}")
-    if not have["cv2"]:
-        fail("lifecycle: cv2 is missing: the DexYCB path decodes, flips and augments with it")
-    work = osp.abspath(LIFECYCLE_DIR)
-    shutil.rmtree(work, ignore_errors=True)
-    data_root, ckpt_root = osp.join(work, "dexycb"), osp.join(work, "checkpoints")
+    data_root = osp.join(work, "dexycb")
     t0 = time.perf_counter()
     splits = (("train", LIFECYCLE_TRAIN, 1), ("test", LIFECYCLE_TEST, 2))
     if have["h5py"]:
@@ -1921,15 +1950,11 @@ def lifecycle(torch, launches, have, bare_step_ms):
             _write_images(data_root, [r.decode() for r in arrays["imgs_path"]],
                           arrays["images"])
     n_frames = {split: n * T for split, (n, T), _ in splits}
-    print(f"lifecycle: synthetic DexYCB at {LIFECYCLE_HW[0]}x{LIFECYCLE_HW[1]}, "
+    print(f"{tag}: synthetic DexYCB at {LIFECYCLE_HW[0]}x{LIFECYCLE_HW[1]}, "
           f"{n_frames['train']} train and {n_frames['test']} test frames, written in "
           f"{time.perf_counter() - t0:.1f} s ("
           + ("HDF5 and JPEG files)" if sequences is None else
              "JPEG files; the annotations in memory)"))
-
-    def config(**over):
-        return FinetuneConfig(**dict(LIFECYCLE_CONFIG, backbone=BACKBONE, img_size=IMG,
-                                     dexycb_root=data_root, **over))
 
     def dataset(split, cfg):
         if sequences is None:
@@ -1937,6 +1962,36 @@ def lifecycle(torch, launches, have, bare_step_ms):
         return DexYCB(data_root, 1, "s1", split, img_size=cfg.img_size,
                       expansion_ratio=cfg.expansion_ratio,
                       store=memory_store(sequences, split, "sequences/{}"))
+
+    return data_root, n_frames, dataset
+
+
+def lifecycle(torch, launches, have, bare_step_ms):
+    """Phase lifecycle: the port's experiment loop at the flagship width.
+    cli.finetune for epoch 1, then again for epoch 2, which must resume from
+    checkpoint_1 (the step count continues, only epoch 2 runs, the
+    ``checkpoint`` symlink moves); cli.evaluate from that symlink (see
+    run_eval); cli.benchmark's four metrics, finite. `have` says which of
+    FILE_LIBS import here; `bare_step_ms` is the train phase's step."""
+    import os.path as osp
+    import shutil
+
+    from cs_vit_tpu_torch.cli import benchmark
+    from cs_vit_tpu_torch.config import FinetuneConfig
+    from cs_vit_tpu_torch.evaluation import compute_metrics
+
+    missing = [m for m in FILE_LIBS if not have[m]]
+    print(f"lifecycle: file libraries missing here: {', '.join(missing) or 'none'}")
+    if not have["cv2"]:
+        fail("lifecycle: cv2 is missing: the DexYCB path decodes, flips and augments with it")
+    work = osp.abspath(LIFECYCLE_DIR)
+    shutil.rmtree(work, ignore_errors=True)
+    ckpt_root = osp.join(work, "checkpoints")
+    data_root, n_frames, dataset = dexycb_fixture(work, have, "lifecycle")
+
+    def config(**over):
+        return FinetuneConfig(**dict(LIFECYCLE_CONFIG, backbone=BACKBONE, img_size=IMG,
+                                     dexycb_root=data_root, **over))
 
     exp_dir = osp.realpath(osp.join(ckpt_root, LIFECYCLE_CONFIG["exp"]))
     steps = n_frames["train"] // LIFECYCLE_CONFIG["batch_size"]
@@ -1955,7 +2010,7 @@ def lifecycle(torch, launches, have, bare_step_ms):
 
     ecfg = config(epoch=2, batch_size=LIFECYCLE_EVAL_BATCH,
                   eval_ckpt=osp.join(exp_dir, "checkpoint"))
-    h5_path = osp.join(work, "eval.h5") if sequences is None else None
+    h5_path = osp.join(work, "eval.h5") if have["h5py"] else None
     dump, ms, wait = run_eval(torch, launches, "lifecycle", ecfg, ckpt_root,
                               dataset("test", ecfg), n_frames["test"] // LIFECYCLE_EVAL_BATCH,
                               h5_path, config)
@@ -2310,6 +2365,527 @@ def datasets(torch, launches, have, bare_step_ms):
         fail("datasets: the C crop and the numpy crop disagree beyond the rounding of the "
              "sample positions")
     shutil.rmtree(work)
+
+
+def flagship_depth() -> int:
+    from cs_vit_tpu_torch.models import PoserConfig
+
+    return sum(PoserConfig(backbone=BACKBONE, image_size=IMG).swin_config().depths)
+
+
+def timed_steps(torch, fb, state, step, batch, n, seed=7):
+    """n steps on `batch`, the droppath generator reseeded to `seed` before
+    each: (median ms of the steps after the first, the last step's peak
+    device memory above what stays resident in bytes (None off the card),
+    the last step's launch counts)."""
+    times, peak, counts = [], None, None
+    gen = torch.Generator(device=DEV)
+    for i in range(n):
+        gen.manual_seed(seed)
+        sync(torch)
+        last = i == n - 1
+        if last:
+            fb.reset_launch_counts()
+            if DEV == "cuda":
+                resident = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, met = step(state, batch, gen)
+        sync(torch)
+        times.append((time.perf_counter() - t0) * 1e3)
+        if not math.isfinite(float(met["loss"])):
+            fail(f"a non-finite loss {float(met['loss'])} at step {i}")
+        if last:
+            counts = fb.launch_counts()
+            if DEV == "cuda":
+                peak = torch.cuda.max_memory_allocated() - resident
+    return statistics.median(times[1:] if n > 1 else times), peak, counts
+
+
+def gib(nbytes) -> str:
+    return "n/a" if nbytes is None else f"{nbytes / 2**30:.3f} GiB"
+
+
+def release(torch) -> None:
+    import gc
+
+    gc.collect()
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+
+
+def check_remat(torch, fb):
+    """The flagship bf16 step at b8 with and without remat, from the same
+    weights, batch and droppath generator: loss, grad norm, every grad and
+    the generator's state afterwards bit-identical; the backward kernels'
+    launches unchanged and the forward kernels' up by one served forward's
+    (the recomputation runs the backbone's forward once more); then the
+    step time and peak memory of both at b8 and at the largest batch the
+    step without remat fits. Returns the plain b8 step's ms."""
+    expect = train_expect(flagship_depth())
+    batch = train_batch(torch, 8, seed=10)
+    res = {}
+    for remat in (False, True):
+        model = train_model(torch, remat=remat)
+        state, step = new_step(torch, model, torch.bfloat16)
+        gen = torch.Generator(device=DEV).manual_seed(7)
+        fb.reset_launch_counts()
+        state, met = step(state, batch, gen)
+        sync(torch)
+        res[remat] = {"loss": met["loss"], "grad_norm": met["grad_norm"],
+                      "counts": fb.launch_counts(), "gen": gen.get_state(),
+                      "grads": {n: p.grad.clone() for n, p in model.named_parameters()
+                                if p.grad is not None}}
+        ms, peak, _ = timed_steps(torch, fb, state, step, batch, PARALLEL_TIMED_STEPS)
+        res[remat].update(ms=ms, peak=peak)
+        print(f"parallel: remat={remat} b8 step loss {float(met['loss']):.6f} grad_norm "
+              f"{float(met['grad_norm']):.6f}; step {ms:.3f} ms (median of "
+              f"{PARALLEL_TIMED_STEPS - 1}), peak {gib(peak)} above the resident")
+        del model, state, step
+        release(torch)
+    plain, remat = res[False], res[True]
+    same = {"loss": torch.equal(plain["loss"], remat["loss"]),
+            "grad_norm": torch.equal(plain["grad_norm"], remat["grad_norm"]),
+            "generator": torch.equal(plain["gen"], remat["gen"]),
+            "grads": plain["grads"].keys() == remat["grads"].keys() and all(
+                torch.equal(g, remat["grads"][n]) for n, g in plain["grads"].items())}
+    print(f"parallel: remat vs plain b8 bf16 step, bit-identical: {json.dumps(same)} "
+          f"({len(plain['grads'])} grads)")
+    if not all(same.values()):
+        fail(f"parallel: the remat step differs from the plain step: {same}")
+    # the recomputation adds one forward of the backbone (a served
+    # forward's kernels, serve_expect); the wrappers' own counters do not
+    # move, as checkpoint's recomputation stops once the block's autograd
+    # function has saved its tensors, before ``fused_swin_block`` returns
+    forward = ("fused_swin_block", "gemm_bias_act", "ln_residual", "window_attention")
+    backward = ("FusedSwinBlock", "gemm_dgrad", "gemm_wgrad", "ln_residual_bwd",
+                "window_attention_bwd")
+    rise = serve_expect(flagship_depth())
+    if DEV == "cuda":
+        wrong = {}
+        for k in forward + backward:
+            want = expect[k] + (rise[k] if k in forward[1:] else 0)
+            if (plain["counts"][k], remat["counts"][k]) != (expect[k], want):
+                wrong[k] = {"plain": plain["counts"][k], "remat": remat["counts"][k],
+                            "expected": (expect[k], want)}
+        if wrong:
+            fail(f"parallel: launches a step: {json.dumps(wrong)}")
+    def kernels_of(counts, names):  # the wrappers' own counters are no kernels
+        return sum(counts[k] for k in names if k not in ("fused_swin_block", "FusedSwinBlock"))
+
+    fwd = [kernels_of(r["counts"], forward) for r in (plain, remat)]
+    bwd = [kernels_of(r["counts"], backward) for r in (plain, remat)]
+    print(f"parallel: launches a step, plain: forward kernels {fwd[0]}, backward kernels "
+          f"{bwd[0]}; remat: forward kernels {fwd[1]} (+{fwd[1] - fwd[0]} for the "
+          f"recomputation), backward kernels {bwd[1]}; {json.dumps(remat['counts'])}")
+    print(f"parallel_remat_b8: step {remat['ms']:.3f} ms (plain {plain['ms']:.3f} ms), peak "
+          f"{gib(remat['peak'])} (plain {gib(plain['peak'])}) on "
+          f"{nvidia_smi_line() if DEV == 'cuda' else 'the CPU'}")
+    if DEV == "cuda":
+        largest_batch(torch, fb, plain["peak"])
+    return plain["ms"]
+
+
+def largest_batch(torch, fb, peak8):
+    """The largest multiple of 8 whose plain step fits on the card, then both
+    steps' time and peak memory there. The first try is where a line
+    through the b8 and b64 peaks meets the free memory; from there it grows
+    by a quarter until a batch does not fit, then halves the interval down
+    to 8 (each batch that does not fit is printed)."""
+    model = train_model(torch)
+    state, step = new_step(torch, model, torch.bfloat16)
+    tried, batch8 = {}, train_batch(torch, 8, seed=11)
+
+    def tiled(b):  # b // 8 copies of one b8 batch: the step's cost, not its data
+        return {k: v.repeat(b // 8, *([1] * (v.dim() - 1))) for k, v in batch8.items()}
+
+    def attempt(b):
+        try:
+            tried[b] = timed_steps(torch, fb, state, step, tiled(b), 2)[:2]
+            print(f"parallel: b{b} fits without remat: step {tried[b][0]:.3f} ms, peak "
+                  f"{gib(tried[b][1])}")
+        except torch.cuda.OutOfMemoryError:
+            tried[b] = None
+            print(f"parallel: b{b} does not fit without remat")
+        release(torch)
+        return tried[b]
+
+    if attempt(64) is None:
+        fail("parallel: b64 does not fit without remat")
+    free, total = torch.cuda.mem_get_info()
+    per = (tried[64][1] - peak8) / 56
+    lo, hi = 64, None  # the largest batch known to fit, the smallest known not to
+    b = max(72, int((free - (peak8 - 8 * per)) / per) // 8 * 8)
+    for _ in range(PARALLEL_MAX_TRIES):
+        if attempt(b) is None:
+            hi = b
+        else:
+            lo = b
+        if hi is not None and hi - lo == 8:
+            break
+        b = lo + (hi - lo) // 16 * 8 if hi is not None else b + max(8, b // 4 // 8 * 8)
+    else:
+        fail(f"parallel: no edge between fitting and not fitting within "
+             f"{PARALLEL_MAX_TRIES} tries: {sorted(tried)}")
+    b = max(k for k, v in tried.items() if v)
+    del model, state, step
+    release(torch)
+    model = train_model(torch, remat=True)
+    state, step = new_step(torch, model, torch.bfloat16)
+    ms, peak, _ = timed_steps(torch, fb, state, step, tiled(b), 2)
+    del model, state, step
+    release(torch)
+    print(f"parallel_largest_plain_batch {b} (of {total / 2**30:.1f} GiB): plain step "
+          f"{tried[b][0]:.3f} ms, peak {gib(tried[b][1])}; remat step {ms:.3f} ms, peak "
+          f"{gib(peak)} on {nvidia_smi_line()}")
+
+
+def nccl_world(torch, have):
+    """cli.finetune on the lifecycle fixture twice for one epoch (4 steps):
+    without a process group, then under a torchrun-style environment with
+    WORLD_SIZE=1, where ``init_distributed`` starts an NCCL group and the
+    step's average runs as an NCCL all-reduce; the two checkpoints must be
+    bit-identical."""
+    import os
+    import os.path as osp
+    import shutil
+    import socket
+
+    import torch.distributed as dist
+
+    from cs_vit_tpu_torch.config import FinetuneConfig
+
+    work = osp.abspath(PARALLEL_DIR)
+    shutil.rmtree(work, ignore_errors=True)
+    ckpt_root = osp.join(work, "checkpoints")
+    data_root, n_frames, dataset = dexycb_fixture(work, have, "parallel")
+    steps = n_frames["train"] // LIFECYCLE_CONFIG["batch_size"]
+    ms = {}
+    for name in ("nogroup", "nccl"):
+        cfg = FinetuneConfig(**dict(LIFECYCLE_CONFIG, exp=f"chip_smoke_{name}", backbone=BACKBONE,
+                                    img_size=IMG, dexycb_root=data_root, epoch=1))
+        env = {}
+        if name == "nccl":
+            with socket.socket() as sock:
+                sock.bind(("localhost", 0))
+                port = sock.getsockname()[1]
+            env = {"RANK": "0", "LOCAL_RANK": "0", "WORLD_SIZE": "1",
+                   "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+        os.environ.update(env)
+        try:
+            _, step_ms, _ = run_finetune(torch, "parallel", cfg, ckpt_root, 1, steps,
+                                         dataset("train", cfg))
+            if name == "nccl":
+                if not (dist.is_initialized() and dist.get_world_size() == 1
+                        and dist.get_backend() == ("nccl" if DEV == "cuda" else "gloo")):
+                    fail("parallel: cli.finetune did not start the process group")
+                print(f"parallel: cli.finetune ran in a {dist.get_backend()} world of "
+                      f"{dist.get_world_size()}")
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            for k in env:
+                del os.environ[k]
+        ms[name] = statistics.median(step_ms)
+        release(torch)
+    payloads = [torch.load(osp.join(ckpt_root, f"chip_smoke_{n}", "checkpoint_1"),
+                           map_location="cpu", weights_only=True) for n in ("nogroup", "nccl")]
+    a, b = payloads
+    same_model = a["model"].keys() == b["model"].keys() and all(
+        torch.equal(v, b["model"][k]) for k, v in a["model"].items())
+    opt_a, opt_b = a["optimizer"]["state"], b["optimizer"]["state"]
+    same_opt = opt_a.keys() == opt_b.keys() and all(
+        torch.equal(v, opt_b[i][k]) for i, s in opt_a.items() for k, v in s.items())
+    print(f"parallel: checkpoint after {steps} steps, NCCL world of 1 vs no group: parameters "
+          f"and statistics bit-identical {same_model}, AdamW state bit-identical {same_opt}, "
+          f"step {b['step']} vs {a['step']}")
+    if not (same_model and same_opt and a["step"] == b["step"] == steps):
+        fail("parallel: the one-rank NCCL fine-tune differs from the run without a group")
+    print(f"parallel_nccl1_finetune_step_ms_b8 {ms['nccl']:.1f} (no group {ms['nogroup']:.1f}; "
+          f"the loop's wall a step, median of {steps}) on "
+          f"{nvidia_smi_line() if DEV == 'cuda' else 'the CPU'}")
+    shutil.rmtree(work)
+
+
+def dp_rank(rank: int, port: str, work: str) -> int:
+    """One of two gloo ranks on the one card (``chip_smoke.py --dp-rank RANK
+    PORT WORK DEV BACKBONE IMG``, the parent's settings): DP_STEPS bf16
+    flagship steps on its half of the b8 batch, droppath drawn from a
+    generator seeded DP_SEED + RANK; writes its state dict, its launch
+    counts and times a step to WORK/rank<RANK>.pt."""
+    import torch
+    import torch.distributed as dist
+
+    from cs_vit_tpu_torch.ops import fused_block as fb
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=2,
+                            rank=rank)
+    model = train_model(torch)
+    state, step = new_step(torch, model, torch.bfloat16)
+    half = {k: v[4 * rank:4 * rank + 4] for k, v in train_batch(torch, 8, seed=10).items()}
+    gen = torch.Generator(device=DEV).manual_seed(DP_SEED + rank)
+    counts, times, losses = [], [], []
+    for _ in range(DP_STEPS):
+        fb.reset_launch_counts()
+        sync(torch)
+        t0 = time.perf_counter()
+        state, met = step(state, half, gen)
+        sync(torch)
+        times.append((time.perf_counter() - t0) * 1e3)
+        counts.append(fb.launch_counts())
+        losses.append(float(met["loss"]))
+    torch.save({"state": {k: v.cpu() for k, v in model.state_dict().items()},
+                "counts": counts, "times": times, "losses": losses, "step": state.step},
+               f"{work}/rank{rank}.pt")
+    dist.destroy_process_group()
+    return 0
+
+
+def two_ranks(torch, bare_step_ms):
+    """Two gloo ranks on the one card (NCCL refuses two ranks on one
+    device), every tensor on the card, each on half of the b8 batch for
+    DP_STEPS steps: both ranks' parameters and BatchNorm statistics
+    bit-identical, and equal bit for bit to a one-process emulation (the two
+    halves' grads and fresh statistics computed in turn, averaged as
+    ``all_mean_`` averages, then clipped and stepped); each rank step
+    launches the flagship step's kernels."""
+    import os
+    import os.path as osp
+    import shutil
+    import socket
+
+    work = osp.abspath(PARALLEL_DIR + "_ranks")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = str(sock.getsockname()[1])
+    procs = [subprocess.Popen([sys.executable, osp.abspath(__file__), "--dp-rank", str(r), port,
+                               work, DEV, BACKBONE, str(IMG)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DP_TIMEOUT))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, (_, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            print(err[-4000:], file=sys.stderr)
+            fail(f"parallel: gloo rank {r} exited {p.returncode}")
+    ranks = [torch.load(osp.join(work, f"rank{r}.pt"), weights_only=True) for r in range(2)]
+
+    model = train_model(torch)
+    state, step = new_step(torch, model, torch.bfloat16)
+    batch = train_batch(torch, 8, seed=10)
+    halves = [{k: v[4 * r:4 * r + 4] for k, v in batch.items()} for r in range(2)]
+    gens = [torch.Generator(device=DEV).manual_seed(DP_SEED + r) for r in range(2)]
+    for _ in range(DP_STEPS):
+        parts = [step.local(halves[r], gens[r]) for r in range(2)]
+        with torch.no_grad():
+            for a, b in zip(step.averaged(parts[0]), step.averaged(parts[1])):
+                a.copy_(((a.float() + b.float()) / 2).to(a.dtype))
+        state, _ = step.update(state, parts[0])
+    emulated = {k: v.cpu() for k, v in model.state_dict().items()}
+
+    def same(x, y):
+        return x.keys() == y.keys() and all(torch.equal(v, y[k]) for k, v in x.items())
+
+    ranks_agree = same(ranks[0]["state"], ranks[1]["state"])
+    emulation = same(ranks[0]["state"], emulated)
+    print(f"parallel: two gloo ranks on the card, {DP_STEPS} steps of b4 each: ranks "
+          f"bit-identical {ranks_agree}, equal to the one-process emulation {emulation}; "
+          f"losses {ranks[0]['losses']} / {ranks[1]['losses']}")
+    if not (ranks_agree and emulation and ranks[0]["step"] == ranks[1]["step"] == DP_STEPS):
+        fail("parallel: the two ranks disagree with each other or with the emulation")
+    expect = train_expect(flagship_depth())
+    for r, rank in enumerate(ranks):
+        for i, counts in enumerate(rank["counts"]):
+            bad = {k: counts[k] for k in expect if counts[k] != expect[k]}
+            if bad and DEV == "cuda":
+                fail(f"parallel: rank {r} step {i}: launches {bad}, expected {expect}")
+    ms = [statistics.median(rank["times"][1:]) for rank in ranks]
+    print(f"parallel_two_rank_step_ms_b4x2 {ms[0]:.3f} / {ms[1]:.3f} (rank 0 / 1, median of "
+          f"{DP_STEPS - 1} after the first; each rank launches the flagship step's "
+          f"{sum(expect[k] for k in expect if k not in ('fused_swin_block', 'FusedSwinBlock'))} "
+          f"kernels a step); the one-process b8 step {bare_step_ms:.3f} ms on "
+          f"{nvidia_smi_line() if DEV == 'cuda' else 'the CPU'}")
+    del model, state, step
+    release(torch)
+    shutil.rmtree(work)
+
+
+def parallel(torch, fb, have, bare_step_ms):
+    """Phase parallel: remat, a one-rank NCCL world, two gloo ranks."""
+    check_remat(torch, fb)
+    nccl_world(torch, have)
+    two_ranks(torch, bare_step_ms)
+
+
+def pretrain(torch, have):
+    """Phase pretrain: ``cli.pretrain_ti`` at the CLI's defaults (ViT-B/16,
+    a DINOv2 of its width, img 224, b64) over PRETRAIN_BATCH x
+    PRETRAIN_STEPS synthetic 480 x 640 JPEGs, one epoch in each mode, then
+    each mode's step on one repeated batch: tivit's loss falls over
+    PRETRAIN_CURVE steps; dino moves only the student's MLPs, its teacher is
+    the EMA formula applied to the student bit for bit and its centre moved;
+    ti moves only the transformation group. Then one f32 TIViT forward on
+    the card against the CPU, held to a floor measured here."""
+    import copy
+    import os.path as osp
+    import shutil
+
+    import numpy as np
+
+    from cs_vit_tpu_torch.cli import pretrain_ti
+    from cs_vit_tpu_torch.data.fixtures import make_synthetic_image_folder
+    from cs_vit_tpu_torch.models.ti import dino_stage_mask
+
+    if not have["cv2"]:
+        fail("pretrain: cv2 is missing: the image datasets decode and augment with it")
+    work = osp.abspath(PRETRAIN_DIR)
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    root = make_synthetic_image_folder(osp.join(work, "imgs"), n=PRETRAIN_BATCH * PRETRAIN_STEPS,
+                                       img_hw=PRETRAIN_HW)
+    print(f"pretrain: {PRETRAIN_BATCH * PRETRAIN_STEPS} synthetic {PRETRAIN_HW[0]}x"
+          f"{PRETRAIN_HW[1]} JPEGs written in {time.perf_counter() - t0:.1f} s")
+    card = nvidia_smi_line() if DEV == "cuda" else "the CPU"
+    for mode in ("tivit", "dino", "ti"):
+        args = pretrain_ti.build_argparser().parse_args(
+            ["--exp", f"chip_smoke_{mode}", "--mode", mode, "--data_root", root, "--epochs", "1",
+             "--log_every", "1", "--num_workers", "8", "--device", DEV] + PRETRAIN_ARGS)
+        t0 = time.perf_counter()
+        run, _ = printed(pretrain_ti.main, args, device=DEV, ckpt_root=osp.join(work, "ckpt"))
+        wall = time.perf_counter() - t0
+        ckpt = torch.load(osp.join(work, "ckpt", args.exp, "checkpoint_1"), map_location="cpu",
+                          weights_only=True)
+        if len(run["losses"]) != PRETRAIN_STEPS or not all(map(math.isfinite, run["losses"])):
+            fail(f"pretrain {mode}: losses {run['losses']}")
+        print(f"pretrain {mode}: cli.pretrain_ti one epoch of {PRETRAIN_STEPS} steps at "
+              f"b{args.batch_size} in {wall:.1f} s, losses {run['losses']}, checkpoint keys "
+              f"{sorted(ckpt)}")
+        images = torch.from_numpy(np.stack(
+            [pretrain_ti.build_dataset(args.dataset, root, args.img_size)[i]
+             for i in range(args.batch_size)])).to(DEV)
+        fresh = (pretrain_ti.tivit_setup if mode == "tivit" else pretrain_ti.dino_setup)(
+            args, torch.device("cpu"))
+        draws = torch.Generator(device=DEV)
+        if mode == "tivit":
+            step = pretrain_ti.make_tivit_step(run)
+        elif mode == "dino":
+            step = pretrain_ti.make_dino_step(run, args.teacher_momentum)
+        else:
+            step = pretrain_ti.make_ti_step(run)
+        n = PRETRAIN_CURVE if mode == "tivit" else 3
+        losses, times, peak = [], [], None
+        for i in range(n):
+            draws.manual_seed(1)
+            last = i == n - 1
+            if last and mode == "dino":
+                teacher_before = copy.deepcopy(run["teacher"])
+            sync(torch)
+            if last and DEV == "cuda":
+                resident = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss, _ = step(images, draws)
+            sync(torch)
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+            if last and DEV == "cuda":
+                peak = torch.cuda.max_memory_allocated() - resident
+        if not all(map(math.isfinite, losses)):
+            fail(f"pretrain {mode}: non-finite losses on one batch {losses}")
+        ms = statistics.median(times[1:])
+        print(f"pretrain_{mode}_step_ms_b{args.batch_size} {ms:.3f} (median of {n - 1} after "
+              f"the first), peak {gib(peak)} above the resident, f32, on {card}; losses on one "
+              f"batch {[round(v, 4) for v in losses]}")
+        if mode == "tivit":
+            if not losses[-1] < losses[0]:
+                fail(f"pretrain tivit: the loss did not fall over {n} steps: {losses}")
+        elif mode == "dino":
+            start = dict(fresh["student"].named_parameters())
+            moved = {k for k, p in run["student"].named_parameters()
+                     if not torch.equal(p.detach().cpu(), start[k].detach())}
+            masked = {k for k in start if dino_stage_mask(k)}
+            students = dict(run["student"].named_parameters())
+            m = args.teacher_momentum
+            ema = all(torch.equal(t, tb * m + (1 - m) * students[k]) for (k, t), tb in zip(
+                run["teacher"].named_parameters(), teacher_before.parameters()))
+            center_moved = bool(run["center"].abs().max() > 0)
+            print(f"pretrain dino: {len(moved)} of {len(start)} student parameters moved, all "
+                  f"under dino_stage_mask: {moved == masked}; teacher = EMA of the student bit "
+                  f"for bit: {ema}; centre moved: {center_moved}")
+            if not (moved == masked and ema and center_moved):
+                fail("pretrain dino: the stage moved other parameters, the teacher is not the "
+                     "EMA of the student, or the centre did not move")
+        else:
+            frozen = all(torch.equal(p.detach().cpu(), q.detach()) for key in ("student", "teacher")
+                         for p, q in zip(run[key].parameters(), fresh[key].parameters()))
+            trans_moved = all(not torch.equal(p.detach().cpu(), q.detach()) for (k, p), q in zip(
+                run["trans"].named_parameters(), fresh["trans"].parameters())
+                if k.endswith("weight"))
+            print(f"pretrain ti: student and teacher unchanged {frozen}, every weight of the "
+                  f"transformation group moved {trans_moved}")
+            if not (frozen and trans_moved):
+                fail("pretrain ti: the stage moved more or less than the transformation group")
+        del run, fresh, step, images
+        release(torch)
+    shutil.rmtree(work)
+    tivit_card_vs_cpu(torch)
+
+
+def tivit_card_vs_cpu(torch):
+    """One f32 TIViT forward at the CLI's widths (b2) on the card against the
+    same forward on the CPU: the same weights, images and handed-in draws,
+    TF32 off. The floor is measured here: four times the CPU's own spread
+    when the weights and the images move by one ulp, plus a share of the
+    largest value (TIVIT_CARD_REL: 1e-5 for the encoder's patches, 1e-4 for
+    the losses, which are means over every token of differences of such
+    sums)."""
+    import copy
+
+    from cs_vit_tpu_torch.models.ti import TIViT, init_ti_weights
+    from cs_vit_tpu_torch.models.vit import ViTConfig
+
+    model = TIViT(ViTConfig())
+    init_ti_weights(model, 3)
+    gen = torch.Generator().manual_seed(5)
+    images = torch.rand(2, 224, 224, 3, generator=gen)
+    draws = (torch.randn(2, generator=gen), torch.rand(2, generator=gen))
+    moved = torch.nextafter(images, torch.full_like(images, 2.0))
+    moved_model = copy.deepcopy(model)
+    with torch.no_grad():
+        for p in moved_model.parameters():
+            p.copy_(torch.nextafter(p, torch.full_like(p, math.inf)))
+
+    def run(m, x, d):
+        with torch.no_grad():
+            out = m(x, draws=d)
+            return {"encode": m.encode(x).float().cpu(),
+                    **{k: v.float().cpu() for k, v in out["logs"]["scalar"].items()}}
+
+    cpu, cpu_moved = run(model, images, draws), run(moved_model, moved, draws)
+    del moved_model
+    card = run(model.to(DEV), images.to(DEV), tuple(d.to(DEV) for d in draws))
+    for k in ("encode", "total", "latent", "support"):
+        miss = float((card[k] - cpu[k]).abs().max())
+        spread = float((cpu_moved[k] - cpu[k]).abs().max())
+        floor = 4 * spread + TIVIT_CARD_REL[k] * float(cpu[k].abs().max())
+        print(f"pretrain: f32 TIViT {k} card vs CPU: max|diff| {miss:.4g}, floor {floor:.4g} "
+              f"(the CPU's one-ulp spread {spread:.4g}; max|CPU| "
+              f"{float(cpu[k].abs().max()):.4g}) {'ok' if miss <= floor else 'FAIL'}")
+        if not miss <= floor:
+            fail(f"pretrain: the card's f32 TIViT {k} is further from the CPU's than the floor")
+    del model
+    release(torch)
 
 
 def cfg_depths(cfg):
@@ -2877,6 +3453,12 @@ def main() -> int:
     with phase("datasets"):
         datasets(torch, launches, have, step_ms)
 
+    with phase("parallel"):
+        parallel(torch, fb, have, step_ms)
+
+    with phase("pretrain"):
+        pretrain(torch, have)
+
     with phase("temporal"):
         temporal = {name: check_temporal(torch, launches, sup, T)
                     for name, sup, T in ((f"rt{RT_T}", "realtime", RT_T),
@@ -2970,4 +3552,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:
+        DEV, BACKBONE, IMG = sys.argv[5], sys.argv[6], int(sys.argv[7])
+        sys.exit(dp_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

@@ -92,6 +92,7 @@ def poser_config_from(cfg: FinetuneConfig) -> PoserConfig:
         spatial_layer_type=cfg.spatial_layer_type,
         num_temporal_layer=cfg.num_temporal_layer,
         temporal_init_method=cfg.temporal_init_method,
+        expansion_ratio=cfg.expansion_ratio,
         temporal_supervision=cfg.temporal_supervision,
         trope_scalar=cfg.trope_scalar,
         num_latent_layer=cfg.num_latent_layer,
@@ -100,6 +101,7 @@ def poser_config_from(cfg: FinetuneConfig) -> PoserConfig:
         image_size=cfg.img_size,
         global_positioning=cfg.global_positioning,
         attention_impl=resolve_attention_impl(cfg.attention_impl),
+        remat=cfg.remat,
     )
 
 

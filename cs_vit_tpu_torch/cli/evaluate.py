@@ -25,6 +25,7 @@ from ..evaluation import (
     reproject_pinhole,
 )
 from ..models import init_poser_weights
+from ..parallel import init_distributed
 from ..serving import INIT_SEED, load_checkpoint_state_dict
 from ..train import make_eval_step, merge_params
 from ..utils.dist import process_index
@@ -52,6 +53,7 @@ def main(cfg: FinetuneConfig, ckpt_root: str = "./checkpoints", h5_path: str | N
         raise ValueError("eval supports spatial or temporal+realtime")
     check_ported_options(cfg)
     device = resolve_device(device)
+    init_distributed(device)
 
     is_main = process_index() == 0
     print_ = wrap_prefix_print(f"[{process_index()}] ") if is_main else nop

@@ -4,13 +4,20 @@
 python -m cs_vit_tpu_torch.cli.finetune --exp myexp --phase spatial \
     --temporal_supervision full --backbone swinv2-tiny-256 --data dexycb ...
 
-One process on one device: the phase's train step (``train.make_train_step``,
-with its NaN skip and grad clip) over the host loader's batches, a ``.pt``
-checkpoint per epoch with a ``checkpoint`` symlink, resume from that symlink,
-and the warmup-cosine or constant lr. Batches reach the card through
+The phase's train step (``train.make_train_step``, with its NaN skip and
+grad clip) over the host loader's batches, a ``.pt`` checkpoint per epoch
+with a ``checkpoint`` symlink, resume from that symlink, and the
+warmup-cosine or constant lr. Batches reach the card through
 ``parallel.device_prefetch`` (pinned memory, a side stream, ``patches``
 cast to the compute dtype on the host), as the JAX loop's do. A JAX orbax
 checkpoint comes across through ``tools/export_torch_ckpt.py``.
+
+Under ``torchrun`` (``parallel.init_distributed``) each rank reads its
+shard of the data, the step averages across the ranks as JAX's
+``shard_map`` step does, and rank 0 alone writes the config, logs and
+checkpoints:
+
+torchrun --nproc_per_node=1 -m cs_vit_tpu_torch.cli.finetune ...
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ import torch
 
 from ..config import FinetuneConfig
 from ..models import init_poser_weights
-from ..parallel import device_prefetch
+from ..parallel import device_prefetch, init_distributed
 from ..serving import INIT_SEED, load_checkpoint_state_dict
 from ..train import (
     TrainState,
@@ -60,9 +67,7 @@ def check_ported_options(cfg: FinetuneConfig) -> None:
     """Refuse the config fields whose JAX paths have no port yet."""
     if cfg.tp > 1:
         raise NotImplementedError("tensor parallelism (tp > 1) is not ported: ROADMAP queue 1, "
-                                  "item 5")
-    if cfg.remat:
-        raise NotImplementedError("remat is not ported to cs_vit_tpu_torch")
+                                  "item 5c")
 
 
 def main(cfg: FinetuneConfig, ckpt_root: str = "./checkpoints", log_every: int = 20,
@@ -72,6 +77,7 @@ def main(cfg: FinetuneConfig, ckpt_root: str = "./checkpoints", log_every: int =
     ``build_datasets`` would build from `cfg` (same item schema)."""
     check_ported_options(cfg)
     device = resolve_device(device)
+    init_distributed(device)
     rank = process_index()
     is_main = rank == 0
     print_ = wrap_prefix_print(f"[{rank}] ") if is_main else nop
@@ -212,8 +218,11 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--mano_model_dir", type=str, default=None)
     p.add_argument("--dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"])
+    p.add_argument("--remat", action="store_true", default=False)
     p.add_argument("--num_workers", type=int, default=None,
                    help="host loader threads (default: config, 8)")
+    p.add_argument("--tp", type=int, default=None,
+                   help="tensor-parallel size (not ported: refused above 1)")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     return p
 
@@ -221,6 +230,7 @@ def build_argparser() -> argparse.ArgumentParser:
 def cli(argv=None):
     """Console entry point (`csvit-torch-finetune`), same surface as `python -m`."""
     args = build_argparser().parse_args(argv)
+    init_distributed(args.device)  # so that rank 0 alone writes the config
     np.random.seed(42)
     arg_dict = {k: v for k, v in vars(args).items() if v is not None and k != "device"}
     cfg = load_or_create_config(args.exp, arg_dict)

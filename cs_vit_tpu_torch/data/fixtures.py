@@ -2,7 +2,8 @@
 dataset fixtures of ``cs_vit_tpu/data/fixtures.py``).
 
 Writes tiny DexYCB / HO3D / InterHand26MSeq / HO3D_FS / legacy InterHand2.6M
-trees with real JPEG images on disk so the full data path (decode -> flip ->
+trees, and the TI pretraining sets' image folder, Ego4D and HInt trees, with
+real JPEG images on disk so the full data path (decode -> flip ->
 aug -> crop -> collate) runs without the licensed datasets. From the same seed
 each ``make_synthetic_*`` writes the same files as the JAX package's function
 of that name: the same HDF5 datasets, the same JPEG, pickle and JSON bytes.
@@ -408,4 +409,59 @@ def make_synthetic_ih26m_legacy(root: str, n_frames: int = 4, img_hw=(120, 160),
         json.dump(joints, f)
     with open(osp.join(annot_dir, f"InterHand2.6M_{split}_MANO_NeuralAnnot.json"), "w") as f:
         json.dump(mano, f)
+    return root
+
+
+def make_synthetic_image_folder(root: str, n: int = 6, img_hw=(90, 110), seed: int = 4) -> str:
+    """A folder of `n` noise JPEGs (``data.pretrain.COCO2017``)."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(root, exist_ok=True)
+    for i in range(n):
+        img = (rng.uniform(size=(*img_hw, 3)) * 255).astype(np.uint8)
+        cv2.imwrite(osp.join(root, f"img_{i:03d}.jpg"), img)
+    return root
+
+
+def make_synthetic_ego4d(root: str, n_frames: int = 3, img_hw=(100, 140), seed: int = 5) -> str:
+    """``images/vid0/*.jpg`` and ``annotations/vid0.json`` with one hand box a
+    frame (``data.pretrain.Ego4DHandImage``)."""
+    import json
+
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(osp.join(root, "images", "vid0"), exist_ok=True)
+    os.makedirs(osp.join(root, "annotations"), exist_ok=True)
+    annot = {}
+    for t in range(n_frames):
+        rel = f"vid0/frame_{t:04d}.jpg"
+        img = (rng.uniform(size=(*img_hw, 3)) * 255).astype(np.uint8)
+        cv2.imwrite(osp.join(root, "images", rel), img)
+        annot[str(t)] = {
+            "image_path": rel,
+            "hands": [{"bbox": {"x_min": 0.3, "y_min": 0.3, "x_max": 0.6, "y_max": 0.7}}],
+        }
+    with open(osp.join(root, "annotations", "vid0.json"), "w") as f:
+        json.dump(annot, f)
+    return root
+
+
+def make_synthetic_hint(root: str, part: str = "newdays", n: int = 4, img_hw=(100, 140),
+                        seed: int = 6) -> str:
+    """``TRAIN_<part>_img/im_*.{jpg,json}`` with one box an image
+    (``data.pretrain.HIntHandImage``)."""
+    import json
+
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    folder = osp.join(root, f"TRAIN_{part}_img")
+    os.makedirs(folder, exist_ok=True)
+    for i in range(n):
+        img = (rng.uniform(size=(*img_hw, 3)) * 255).astype(np.uint8)
+        cv2.imwrite(osp.join(folder, f"im_{i:03d}.jpg"), img)
+        with open(osp.join(folder, f"im_{i:03d}.json"), "w") as f:
+            json.dump([{"bbox": [[20.0, 25.0, 90.0, 85.0]]}], f)
     return root

@@ -3,10 +3,10 @@
 
 Parity: `scripts/eval.py:204-314` — resizable gzip datasets ``img_paths``,
 ``joint_cam_{gt,pred}`` [N,21,3], ``joint_reproj_{gt,pred}`` [N,21,2], written
-by process 0 only. This package runs one process: the gathers are the
-identity there, and refuse a ``torch.distributed`` world of more than one
-until the data-parallel port (ROADMAP queue 1, item 5) gives them a
-collective. ``h5py`` is imported when a writer is made.
+by process 0 only. In a ``torch.distributed`` world of more than one the
+gathers collect every rank's rows in rank order, as JAX's
+``process_allgather`` does; on one process they are the identity. ``h5py``
+is imported when a writer is made.
 """
 
 from __future__ import annotations
@@ -74,22 +74,27 @@ class EvalH5Writer:
             self.h5.close()
 
 
-def _single_process(what: str) -> None:
-    if process_count() > 1:
-        raise NotImplementedError(
-            f"{what} across a torch.distributed world of {process_count()} processes is not "
-            "ported yet: it waits for the data-parallel port (ROADMAP queue 1, item 5)")
+def _all_gather(obj) -> list:
+    """Every rank's `obj`, in rank order (a pickled all-gather, which NCCL
+    and gloo both take)."""
+    import torch.distributed as dist
+
+    out = [None] * process_count()
+    dist.all_gather_object(out, obj)
+    return out
 
 
 def gather_to_host0(arr: np.ndarray) -> np.ndarray:
-    """Rows of every process on process 0 (ref `eval.py:75-82`); the
+    """Rows of every process, rank-major (ref `eval.py:75-82`); the
     identity on one process."""
-    _single_process("gather_to_host0")
-    return arr
+    if process_count() == 1:
+        return arr
+    return np.concatenate([np.asarray(a) for a in _all_gather(np.asarray(arr))], axis=0)
 
 
 def gather_strings_to_host0(strings: List[str]) -> List[str]:
-    """Strings of every process on process 0 (ref `eval.py:53-72`); the
+    """Strings of every process, rank-major (ref `eval.py:53-72`); the
     identity on one process."""
-    _single_process("gather_strings_to_host0")
-    return strings
+    if process_count() == 1:
+        return strings
+    return [s for part in _all_gather(list(strings)) for s in part]

@@ -1,4 +1,12 @@
-from .latent import MLP3, ScaleRotComplexEmbedTransformationGroup, compose_sr  # noqa: F401
+from .dinov2 import Dinov2Backbone, Dinov2Config  # noqa: F401
+from .latent import (  # noqa: F401
+    MLP3,
+    ImageLatentTransformerGroup,
+    ScaleRotComplexEmbedTransformationGroup,
+    ScaleRotTransformationGroup,
+    compose_hf_cr_hr,
+    compose_sr,
+)
 from .modules import (  # noqa: F401
     MHA,
     ContinuousAngleEmbedding,
@@ -8,6 +16,7 @@ from .modules import (  # noqa: F401
     FeedForwardNetwork,
     LayerNorm,
     Linear,
+    LoraCompatibleMHA,
     PositionalEncoding,
     RoPE2DPositionalEncoding,
     TorchBatchNorm,
@@ -23,3 +32,23 @@ from .poser import (  # noqa: F401
     sparse_corner_coords,
 )
 from .swinv2 import SwinV2, SwinV2Config, swinv2_base_256, swinv2_tiny_256  # noqa: F401
+from .ti import (  # noqa: F401
+    TIDinoTransGroup,
+    TIDinoViT,
+    TIViT,
+    dino_forward,
+    dino_stage_mask,
+    support_loss,
+    ti_forward,
+    ti_stage_mask,
+    update_teacher,
+)
+from .vit import (  # noqa: F401
+    LoRADense,
+    ViTConfig,
+    ViTEncoder,
+    ViTMAEDecoderConfig,
+    ViTMAEDecoderNoMask,
+    get_2d_sincos_pos_embed,
+    merge_lora_params,
+)

@@ -118,6 +118,33 @@ class MHA(nn.Module):
         return self.output(out)
 
 
+class LoraCompatibleMHA(nn.Module):
+    """Deprecated q/k/v-projected attention (ref
+    ``transformer_module.py:209-232``): separate ``q_proj``, ``k_proj``,
+    ``v_proj`` Linears, then a standard ``torch.nn.MultiheadAttention``
+    (``mha``: fused in-projection, 1/sqrt(d_h) scaling, not :class:`MHA`'s
+    sqrt-multiply quirk, out-projection). Kept so old checkpoints load;
+    constructing it warns, as the reference and the JAX package do."""
+
+    def __init__(self, embed_dim: int, num_heads: int):
+        super().__init__()
+        import warnings
+
+        warnings.warn("LoraCompatibleMHA has been deprecated. Use MHA instead.",
+                      DeprecationWarning, stacklevel=2)
+        assert embed_dim % num_heads == 0
+        self.q_proj = Linear(embed_dim, embed_dim)
+        self.k_proj = Linear(embed_dim, embed_dim)
+        self.v_proj = Linear(embed_dim, embed_dim)
+        self.mha = nn.MultiheadAttention(embed_dim, num_heads, batch_first=True)
+
+    def forward(self, query: torch.Tensor, key: torch.Tensor, value: torch.Tensor
+                ) -> torch.Tensor:
+        out, _ = self.mha(self.q_proj(query), self.k_proj(key), self.v_proj(value),
+                          need_weights=False)
+        return out
+
+
 class FeedForwardNetwork(nn.Module):
     """Linear -> exact-erf GELU -> Linear (reference names ``net.0``/``net.2``)."""
 

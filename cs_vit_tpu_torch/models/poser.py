@@ -90,6 +90,7 @@ class PoserConfig:
     spatial_layer_type: str = "decoder"     # "decoder" | "encoder"
     num_temporal_layer: int = 2
     temporal_init_method: str = "zero"      # "zero" | "random"
+    expansion_ratio: float = 1.25           # carried, never read (as in JAX)
     temporal_supervision: str = "full"      # "full" | "realtime"
     trope_scalar: float = 20.0
     num_latent_layer: Optional[int] = None
@@ -101,6 +102,7 @@ class PoserConfig:
     compat_swap: bool = True                # latent embedder swap quirk
     custom_swin: Optional[SwinV2Config] = None
     attention_impl: str = "auto"            # "auto" | "eager" | "fused" | "pallas" | "hybrid"
+    remat: bool = False                     # recompute backbone blocks in the backward
 
     def __post_init__(self):
         choices = {
@@ -124,14 +126,14 @@ class PoserConfig:
             return self.custom_swin
         name = self.backbone.lower()
         if "base" in name:
-            return swinv2_base_256(image_size=self.image_size)
+            return swinv2_base_256(image_size=self.image_size, remat=self.remat)
         if "tiny" in name:
-            return swinv2_tiny_256(image_size=self.image_size)
+            return swinv2_tiny_256(image_size=self.image_size, remat=self.remat)
         if "test" in name:  # minimal arch for smoke tests / CI
             return SwinV2Config(
                 image_size=self.image_size, embed_dim=8, depths=(1, 1),
                 num_heads=(2, 2), window_size=4, drop_path_rate=0.0,
-                pretrained_window_sizes=(0, 0),
+                pretrained_window_sizes=(0, 0), remat=self.remat,
             )
         raise ValueError(f"unknown backbone spec: {self.backbone}")
 

@@ -27,6 +27,15 @@ rate ``linspace(0, drop_path_rate, n)[i]``, drawing from the
 Both implementations take the same draws: a [B, 2] keep mask per block, which
 the eager path applies as ``x * mask / keep`` (the JAX ``DropPath``) and the
 fused path hands the kernels as keep-scales ``mask / keep``.
+
+``SwinV2Config.remat`` (the JAX package's ``nn.remat`` of each block) runs
+every block under ``torch.utils.checkpoint`` (non-reentrant) whenever
+autograd records, on each implementation: the block's activations are
+recomputed in the backward instead of kept. The droppath mask is drawn
+before the checkpointed call and handed to it, so the recomputation applies
+the very same mask and the generator advances once a block, as without
+remat; the fused path's operands (weights as the kernels take them, the CPB
+bias) are built outside it too.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.fused_block import fused_swin_block, window_partition, window_reverse
 from ..ops.window_attention import fused_window_attention
@@ -63,6 +73,7 @@ class SwinV2Config:
     drop_path_rate: float = 0.1
     layer_norm_eps: float = 1e-5
     pretrained_window_sizes: Tuple[int, ...] = (0, 0, 0, 0)
+    remat: bool = False  # recompute each block in the backward (less memory)
 
     @property
     def num_layers(self) -> int:
@@ -279,8 +290,14 @@ class SwinV2Block(nn.Module):
             p = torch.full((x.shape[0], 2), 1.0 - self.drop_path_rate, device=generator.device)
             keep = torch.bernoulli(p, generator=generator).to(x.device)
         if impl == "fused":
-            return self._fused(x, keep)
-        return self._eager(x, keep, kernel=impl == "pallas")
+            # uniform compute dtype = Linear promotion of (input, params)
+            dt = torch.promote_types(x.dtype, self.attention.self.query.weight.dtype)
+            run, args = self._fused, (x, keep, self._cached_fused_operands(dt))
+        else:
+            run, args = self._eager, (x, keep, impl == "pallas")
+        if self.config.remat and torch.is_grad_enabled():
+            return checkpoint(run, *args, use_reentrant=False)
+        return run(*args)
 
     def _drop_path(self, branch: torch.Tensor, keep: Optional[torch.Tensor], col: int):
         if keep is None:
@@ -353,13 +370,12 @@ class SwinV2Block(nn.Module):
             self._fused_cache = (key, self._fused_operands(dt))
         return self._fused_cache[1]
 
-    def _fused(self, x: torch.Tensor, keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def _fused(self, x: torch.Tensor, keep: Optional[torch.Tensor], operands: dict
+               ) -> torch.Tensor:
         H, W = self.resolution
         B, _, C = x.shape
-        # uniform compute dtype = Linear promotion of (input, params)
-        dt = torch.promote_types(x.dtype, self.attention.self.query.weight.dtype)
         y = fused_swin_block(
-            x.reshape(B, H, W, C).to(dt), **self._cached_fused_operands(dt),
+            x.reshape(B, H, W, C).to(operands["wqkv"].dtype), **operands,
             droppath_keep=None if keep is None else keep / (1.0 - self.drop_path_rate),
             window_size=self.ws, num_heads=self.num_heads,
             eps=self.config.layer_norm_eps, shift=self.sh,

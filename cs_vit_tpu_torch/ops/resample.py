@@ -18,10 +18,16 @@ compiler exists, and its numpy path (f64 sample positions, uint8 converted
 to float first) only where none does; ``crop_and_resize`` is the device
 crop, a plain torch gather on the tensors' own device (``jnp`` gather code
 in the JAX package, not a Pallas kernel).
+
+TI pretraining adds ``crop_with_normalized_box_np`` (numpy, a copy of the
+JAX function) and ``scale_rotate_img``, the centre scale-and-rotate of a
+batch of images with reflection padding: JAX's vmapped gather written
+batched in torch, on the images' device.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import numpy as np
@@ -108,14 +114,20 @@ def crop_and_resize(
     device (``cs_vit_tpu/ops/resample.py:crop_and_resize``, its vmapped
     gather written batched; positions in the corners' dtype)."""
     h, w = out_size
-    N, H, W, _ = images.shape
     corners = corners.to(images.device)
     tl, tr, bl = corners[:, 0], corners[:, 1], corners[:, 3]
     xs = torch.linspace(0.0, 1.0, w, dtype=corners.dtype, device=corners.device)
     ys = torch.linspace(0.0, 1.0, h, dtype=corners.dtype, device=corners.device)
     grid = (tl[:, None, None, :] + xs[None, None, :, None] * (tr - tl)[:, None, None, :]
             + ys[None, :, None, None] * (bl - tl)[:, None, None, :])  # [N,h,w,2] (x, y)
-    x, y = grid[..., 0], grid[..., 1]
+    return _bilinear_gather(images, grid[..., 0], grid[..., 1])
+
+
+def _bilinear_gather(images: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Bilinear samples of `images` [N,H,W,C] at source positions `x`, `y`
+    [N,h,w] (pixel centres at integers), zero outside (the JAX package's
+    ``_bilinear_gather_jax``, batched)."""
+    N, H, W, _ = images.shape
     x0, y0 = torch.floor(x), torch.floor(y)
     wx, wy = (x - x0)[..., None], (y - y0)[..., None]
     x0, y0 = x0.long(), y0.long()
@@ -176,3 +188,62 @@ def crop_with_square_box_np(
     patches = crop_and_resize_np(images, corners, (output_size, output_size))
     scales = (square_sizes[:, 0] / output_size).astype(np.float32)
     return patches, scales, square_bboxes
+
+
+def crop_with_normalized_box_np(
+    image: np.ndarray,            # [H,W,C]
+    crop_box,                     # [4] normalized xyxy
+    output_size: Tuple[int, int],
+) -> np.ndarray:
+    """Normalized-coordinate crop with aspect-ratio adjustment (ref
+    ``cs_vit/utils/img.py:244-336``): the box is widened (never shrunk)
+    about its centre to the target aspect ratio, then cropped and resized
+    with align_corners=True and zero padding."""
+    H, W = image.shape[:2]
+    box = np.asarray(crop_box, np.float32) * np.asarray([W, H, W, H], np.float32)
+    x1, y1, x2, y2 = box
+    th, tw = output_size
+    target_ratio = tw / th
+    cur_w, cur_h = x2 - x1, y2 - y1
+    cur_ratio = cur_w / cur_h
+    cx, cy = (x1 + x2) / 2, (y1 + y2) / 2
+    if cur_ratio < target_ratio:
+        new_w, new_h = cur_h * target_ratio, cur_h
+    else:
+        new_w, new_h = cur_w, cur_w / target_ratio
+    x1, x2 = cx - new_w / 2, cx + new_w / 2
+    y1, y2 = cy - new_h / 2, cy + new_h / 2
+    corners = np.asarray([[x1, y1], [x2, y1], [x2, y2], [x1, y2]], np.float32)
+    return crop_and_resize_np(image[None], corners[None], output_size)[0]
+
+
+def scale_rotate_img(
+    images: torch.Tensor,        # [N,H,W,C]
+    scale_coef: torch.Tensor,    # [N]
+    angle_degree: torch.Tensor,  # [N]
+) -> torch.Tensor:
+    """Centre scale+rotate with reflection padding (ref
+    ``cs_vit/utils/img.py:185-212``), kornia's ``get_rotation_matrix2d`` /
+    ``affine(align_corners=False)`` convention: output pixel p samples the
+    source at M^-1 (p - c) + c, M the scaled rotation about the centre c,
+    bilinearly, the position reflected into the image first."""
+    N, H, W, C = images.shape
+    cx, cy = W / 2.0, H / 2.0
+    theta = angle_degree * math.pi / 180.0
+    cos, sin = torch.cos(theta), torch.sin(theta)
+    inv_s = 1.0 / scale_coef
+    m00, m01 = (cos * inv_s)[:, None, None], (-sin * inv_s)[:, None, None]
+    m10, m11 = (sin * inv_s)[:, None, None], (cos * inv_s)[:, None, None]
+    ys, xs = torch.meshgrid(torch.arange(H, device=images.device),
+                            torch.arange(W, device=images.device), indexing="ij")
+    xs = xs.to(torch.float32) - cx
+    ys = ys.to(torch.float32) - cy
+
+    def reflect(v, n):
+        period = 2 * (n - 1)
+        v = torch.fmod(torch.abs(v), period)
+        return torch.where(v > n - 1, period - v, v)
+
+    sx = reflect(m00 * xs + m01 * ys + cx, W)
+    sy = reflect(m10 * xs + m11 * ys + cy, H)
+    return _bilinear_gather(images, sx, sy)

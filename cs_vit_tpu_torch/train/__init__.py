@@ -1,8 +1,10 @@
 from .checkpoint import (  # noqa: F401
+    cpu_state_dict,
     latest_checkpoint,
     merge_params,
     restore_checkpoint,
     save_checkpoint,
+    save_payload,
 )
 from .convert import (  # noqa: F401
     FlaxMapper,

@@ -38,12 +38,23 @@ def merge_params(template: Mapping[str, torch.Tensor], loaded: Mapping[str, torc
 
 def save_checkpoint(ckpt_dir: str, epoch: int, state: TrainState) -> str:
     """Write checkpoint_<epoch> and point the ``checkpoint`` symlink at it."""
+    sd = cpu_state_dict(state.model)
+    return save_payload(ckpt_dir, epoch, {"model": sd, "merged": sd, "epoch": epoch,
+                                          "optimizer": state.optimizer.state_dict(),
+                                          "step": state.step})
+
+
+def cpu_state_dict(module: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    return {k: v.detach().cpu() for k, v in module.state_dict().items()}
+
+
+def save_payload(ckpt_dir: str, epoch: int, payload: Dict) -> str:
+    """Write `payload` as checkpoint_<epoch> and point the ``checkpoint``
+    symlink at it."""
     ckpt_dir = os.path.abspath(ckpt_dir)
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, f"checkpoint_{epoch}")
-    sd = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
-    torch.save({"model": sd, "merged": sd, "epoch": epoch,
-                "optimizer": state.optimizer.state_dict(), "step": state.step}, path)
+    torch.save(payload, path)
     link = os.path.join(ckpt_dir, "checkpoint")
     if os.path.islink(link) or os.path.exists(link):
         os.remove(link)

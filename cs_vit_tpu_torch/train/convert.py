@@ -28,6 +28,23 @@ Name scheme (flax -> reference):
 Dense kernels [in, out] become Linear weights [out, in]; the patch conv
 HWIO becomes OIHW; BatchNorm scale/bias -> weight/bias, mean/var ->
 running_mean/running_var, with num_batches_tracked = 0.
+
+TI pretraining's models come across by :func:`tivit_state_dict_from_flax`
+(encoder with or without LoRA, MAE decoder, latent group),
+:func:`dino_state_dict_from_flax` (a DINO student or teacher) and
+:func:`dino_trans_state_dict_from_flax` (TI-DINO's latent group), under HF's
+ViT / ViTMAEDecoder / Dinov2Model names:
+  blockN/attention/{query,key,value}/base (+ lora_A, lora_B)
+                               -> encoder.layer.N.attention.attention.* (+ lora_A, lora_B)
+  blockN/attention/output      -> encoder.layer.N.attention.output.dense
+  blockN/{intermediate,output} -> encoder.layer.N.{intermediate,output}.dense
+  (DINOv2) blockN/{query,key,value,attn_output} -> encoder.layer.N.attention.*,
+  blockN/layer_scale{1,2}      -> encoder.layer.N.layer_scale{1,2}.lambda1,
+  blockN/{fc1,fc2}             -> encoder.layer.N.mlp.{fc1,fc2}
+The TI-only latent groups map as the Poser's does (``srN`` -> ``sr.N``;
+the legacy group's ``{hf,cr,hr}N`` -> ``{hf,cr,hr}.N``), and the deprecated
+``LoraCompatibleMHA``'s ``in_{q,k,v}`` and ``out`` become the reference's
+``mha.in_proj_weight``/``in_proj_bias`` and ``mha.out_proj``.
 """
 
 from __future__ import annotations
@@ -118,6 +135,83 @@ class FlaxMapper:
         for i, n in ((0, "fc1"), (2, "fc2"), (4, "fc3")):
             self.lin(fpath + (n,), _join(tname, str(i)))
 
+    def lora_dense(self, fpath, tname):
+        self.lin(fpath + ("base",), tname)
+        if fpath + ("lora_A",) in self.p:
+            self.out[_join(tname, "lora_A")] = self.p[fpath + ("lora_A",)]
+            self.out[_join(tname, "lora_B")] = self.p[fpath + ("lora_B",)]
+
+    def patch_embed(self, fpath, tname):
+        self.out[_join(tname, "projection.weight")] = self.p[fpath + ("kernel",)].transpose(
+            3, 2, 0, 1)
+        self.out[_join(tname, "projection.bias")] = self.p[fpath + ("bias",)]
+
+    def vit_layer(self, fpath, tname):
+        for n in ("query", "key", "value"):
+            self.lora_dense(fpath + ("attention", n), _join(tname, f"attention.attention.{n}"))
+        self.lin(fpath + ("attention", "output"), _join(tname, "attention.output.dense"))
+        self.ln(fpath + ("layernorm_before",), _join(tname, "layernorm_before"))
+        self.ln(fpath + ("layernorm_after",), _join(tname, "layernorm_after"))
+        self.lin(fpath + ("intermediate",), _join(tname, "intermediate.dense"))
+        self.lin(fpath + ("output",), _join(tname, "output.dense"))
+
+    def vit(self, fpath, tname, num_layers):
+        self.patch_embed(fpath + ("patch_embed",), _join(tname, "embeddings.patch_embeddings"))
+        for n in ("cls_token", "position_embeddings"):
+            self.out[_join(tname, f"embeddings.{n}")] = self.p[fpath + (n,)]
+        for i in range(num_layers):
+            self.vit_layer(fpath + (f"block{i}",), _join(tname, f"encoder.layer.{i}"))
+        self.ln(fpath + ("layernorm",), _join(tname, "layernorm"))
+
+    def mae_decoder(self, fpath, tname, num_layers):
+        self.lin(fpath + ("decoder_embed",), _join(tname, "decoder_embed"))
+        for i in range(num_layers):
+            self.vit_layer(fpath + (f"block{i}",), _join(tname, f"decoder_layers.{i}"))
+        self.ln(fpath + ("decoder_norm",), _join(tname, "decoder_norm"))
+        self.lin(fpath + ("decoder_pred",), _join(tname, "decoder_pred"))
+
+    def dinov2(self, fpath, tname, num_layers):
+        self.patch_embed(fpath + ("patch_embed",), _join(tname, "embeddings.patch_embeddings"))
+        for n in ("cls_token", "position_embeddings"):
+            self.out[_join(tname, f"embeddings.{n}")] = self.p[fpath + (n,)]
+        width = self.p[fpath + ("cls_token",)].shape[-1]
+        self.out[_join(tname, "embeddings.mask_token")] = np.zeros((1, width), np.float32)
+        for i in range(num_layers):
+            b, t = fpath + (f"block{i}",), _join(tname, f"encoder.layer.{i}")
+            self.ln(b + ("norm1",), _join(t, "norm1"))
+            self.ln(b + ("norm2",), _join(t, "norm2"))
+            for n in ("query", "key", "value"):
+                self.lin(b + (n,), _join(t, f"attention.attention.{n}"))
+            self.lin(b + ("attn_output",), _join(t, "attention.output.dense"))
+            for k in ("1", "2"):
+                self.out[_join(t, f"layer_scale{k}.lambda1")] = self.p[b + (f"layer_scale{k}",)]
+            for n in ("fc1", "fc2", "weights_in", "weights_out"):
+                if b + (n, "kernel") in self.p:
+                    self.lin(b + (n,), _join(t, f"mlp.{n}"))
+        self.ln(fpath + ("layernorm",), _join(tname, "layernorm"))
+
+    def scale_rot_group(self, fpath, tname, num_layers):
+        for name in ("scale_embedder", "angle_embedder"):
+            self.angle_embedder(fpath + (name,), _join(tname, name))
+        for i in range(num_layers):
+            self.encoder_block(fpath + (f"sr{i}",), _join(tname, f"sr.{i}"))
+
+    def image_latent_group(self, fpath, tname, num_layers):
+        self.angle_embedder(fpath + ("angle_embedder",), _join(tname, "angle_embedder"))
+        for op in ("hf", "cr", "hr"):
+            for i in range(num_layers):
+                self.encoder_block(fpath + (f"{op}{i}",), _join(tname, f"{op}.{i}"))
+
+    def lora_mha(self, fpath, tname):
+        for n in ("q_proj", "k_proj", "v_proj"):
+            self.lin(fpath + (n,), _join(tname, n))
+        ins = ("in_q", "in_k", "in_v")
+        self.out[_join(tname, "mha.in_proj_weight")] = np.concatenate(
+            [self.p[fpath + (n, "kernel")].T for n in ins])
+        self.out[_join(tname, "mha.in_proj_bias")] = np.concatenate(
+            [self.p[fpath + (n, "bias")] for n in ins])
+        self.lin(fpath + ("out",), _join(tname, "mha.out_proj"))
+
     def latent_group(self, fpath, tname, num_layers):
         self.out[_join(tname, "rope2d.embedding")] = self.p[fpath + ("rope2d", "embedding")]
         for name in ("scale_embedder", "angle_embedder"):
@@ -197,6 +291,50 @@ def state_dict_from_flax(
         m.latent_group(("latent_trans",), "latent_trans", config.num_latent_layer)
 
     return {k: np.array(v, order="C") for k, v in m.out.items()}
+
+
+def _state_dict(m: FlaxMapper) -> Dict[str, np.ndarray]:
+    return {k: np.array(v, order="C") for k, v in m.out.items()}
+
+
+def _depth(params: Mapping, fpath) -> int:
+    """The number of ``blockN`` under `fpath` of a flax parameter tree."""
+    tree = params
+    for k in fpath:
+        tree = tree[k]
+    return sum(1 for k in tree if k.startswith("block"))
+
+
+def tivit_state_dict_from_flax(params: Mapping, batch_stats: Mapping = None
+                               ) -> Dict[str, np.ndarray]:
+    """A JAX ``TIViT``'s (params, batch_stats) as the port's ``TIViT`` names
+    them: the encoder (with its LoRA factors where it has them), the MAE
+    decoder where there is one, and the latent group."""
+    m = FlaxMapper(params, batch_stats)
+    m.vit(("backbone",), "backbone", _depth(params, ("backbone",)))
+    if "decoder" in params:
+        m.mae_decoder(("decoder",), "decoder", _depth(params, ("decoder",)))
+    n_sr = sum(1 for k in params["trans_grp"] if k.startswith("sr"))
+    m.scale_rot_group(("trans_grp",), "trans_grp", n_sr)
+    return _state_dict(m)
+
+
+def dino_state_dict_from_flax(params: Mapping) -> Dict[str, np.ndarray]:
+    """A JAX ``TIDinoViT``'s params (student or teacher) as the port's
+    ``TIDinoViT`` names them."""
+    m = FlaxMapper(params)
+    m.dinov2(("backbone",), "backbone", _depth(params, ("backbone",)))
+    return _state_dict(m)
+
+
+def dino_trans_state_dict_from_flax(params: Mapping, batch_stats: Mapping
+                                    ) -> Dict[str, np.ndarray]:
+    """A JAX ``TIDinoTransGroup``'s (params, batch_stats) as the port's
+    ``TIDinoTransGroup`` names them."""
+    m = FlaxMapper(params, batch_stats)
+    n_sr = sum(1 for k in params["trans_grp"] if k.startswith("sr"))
+    m.latent_group(("trans_grp",), "trans_grp", n_sr)
+    return _state_dict(m)
 
 
 LATENT_PREFIX = "latent_trans."

@@ -1,4 +1,4 @@
-"""The train and eval steps (port of ``cs_vit_tpu/train/step.py``, one device).
+"""The train and eval steps (port of ``cs_vit_tpu/train/step.py``).
 
 Mixed precision the JAX way: with ``compute_dtype=torch.bfloat16`` the
 forward and backward run on bf16 copies of the f32 master parameters (the
@@ -15,15 +15,27 @@ The phase decides what trains (``phase_trainable_params``): in
 statistics, while the model runs the backbone and the spatial encoder
 without autograd; the frozen parameters' compute-dtype copies are made
 without autograd too.
+
+Data parallelism is JAX's ``shard_map`` step (`cs_vit_tpu/train/step.py:94-107`)
+over a ``torch.distributed`` world: each rank runs the forward and backward
+on its own rows, then the loss, every grad, the scalar logs and the fresh
+BatchNorm statistics are averaged across the world in one collective
+(``parallel.all_mean_``) before the step decides whether it is finite, so
+that every rank takes the same branch. So each BatchNorm normalises a rank's
+rows by that rank's own statistics, as under ``shard_map``, and the running
+statistics move by their mean; the model is not wrapped in
+``DistributedDataParallel``, whose buffer broadcast would copy rank 0's.
+Without a process group the averaging is the identity.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.func import functional_call
 
+from ..parallel.mesh import all_mean_
 from .optim import PhaseAdamW, global_norm
 from .state import TrainState
 
@@ -66,45 +78,77 @@ def make_train_step(
         with torch.no_grad():
             return p.to(compute_dtype)
 
-    def step(state: TrainState, batch: Dict[str, torch.Tensor],
-             generator: Optional[torch.Generator] = None,
-             latent_generator: Optional[torch.Generator] = None):
+    def local(batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None,
+              latent_generator: Optional[torch.Generator] = None) -> Dict:
+        """This rank's part of the step: the loss, the grads of the trainable
+        parameters (zeros where the loss does not reach them), the scalar
+        logs, the fresh BatchNorm statistics and the predicted joints."""
         params = {n: cast(p) for n, p in model.named_parameters()}
         if compute_dtype is not None:
             batch = {**batch, "patches": batch["patches"].to(compute_dtype)}
         stats = {n: model.get_buffer(n).clone() for n in stat_names}
-        out = functional_call(model, {**params, **stats}, (batch, phase, generator, latent_generator))
+        out = functional_call(model, {**params, **stats},
+                              (batch, phase, generator, latent_generator))
         loss = out["loss"].float()
         grads = torch.autograd.grad(loss, trainable, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(trainable, grads)]
-        finite = bool(torch.isfinite(loss))
+        return {"loss": loss.detach().clone(), "grads": grads,
+                "scalar_logs": _detach(out["logs"]["scalar"]), "stats": stats,
+                "joint_cam_pred": out["predict"]["joint_cam"].detach().float()}
+
+    def averaged(part: Dict) -> List[torch.Tensor]:
+        """The tensors of `part` that the world averages, in one order."""
+        return [part["loss"], *part["grads"], *_leaves(part["scalar_logs"]),
+                *part["stats"].values()]
+
+    def update(state: TrainState, part: Dict) -> Tuple[TrainState, Dict]:
+        """The rest of the step, from a (world-averaged) part: the finite
+        check, the clip and AdamW, the statistics written back."""
+        finite = bool(torch.isfinite(part["loss"]))
         if finite:
-            for p, g in zip(trainable, grads):
+            for p, g in zip(trainable, part["grads"]):
                 p.grad = g
             grad_norm = optimizer.clip_grads_()
             optimizer.scheduled_step()
             with torch.no_grad():
-                for n, v in stats.items():
+                for n, v in part["stats"].items():
                     model.get_buffer(n).copy_(v)
             state.step += 1
         else:
-            grad_norm = global_norm(grads)
+            grad_norm = global_norm(part["grads"])
         metrics = {
-            "loss": loss.detach(),
+            "loss": part["loss"],
             "grad_norm": grad_norm,
             "skipped": torch.tensor(0.0 if finite else 1.0),
-            "scalar_logs": _detach(out["logs"]["scalar"]),
-            "joint_cam_pred": out["predict"]["joint_cam"].detach().float(),
+            "scalar_logs": part["scalar_logs"],
+            "joint_cam_pred": part["joint_cam_pred"],
         }
         return state, metrics
 
+    def step(state: TrainState, batch: Dict[str, torch.Tensor],
+             generator: Optional[torch.Generator] = None,
+             latent_generator: Optional[torch.Generator] = None):
+        part = local(batch, generator, latent_generator)
+        all_mean_(averaged(part))
+        return update(state, part)
+
+    # the pieces, for a caller that averages the parts itself (a one-process
+    # emulation of a world)
+    step.local, step.averaged, step.update = local, averaged, update
     return step
 
 
 def _detach(tree):
+    """A copy of a tree of tensors, off the graph."""
     if isinstance(tree, dict):
         return {k: _detach(v) for k, v in tree.items()}
-    return tree.detach()
+    return tree.detach().clone()
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in _leaves(v)]
+    return [tree]
 
 
 def make_eval_step(model: torch.nn.Module, phase: str = "inference"

@@ -52,6 +52,7 @@ from cs_vit_tpu.train import warmup_cosine_schedule as j_warmup_cosine_schedule
 from cs_vit_tpu_torch.cli import benchmark, evaluate, finetune
 from cs_vit_tpu_torch.cli.common import (
     build_datasets,
+    build_model,
     load_backbone_params,
     load_or_create_config,
     read_safetensors,
@@ -410,8 +411,15 @@ def test_unported_datasets_are_refused(env, name, tmp_path):
 
 @pytest.mark.parametrize("field,value", [("tp", 2), ("remat", True)])
 def test_unported_options_are_refused(env, field, value):
-    with pytest.raises(NotImplementedError):
-        finetune.main(make_cfg(env, **{field: value}), device="cpu")
+    """Only tensor parallelism is still refused; ``remat``, refused until it
+    was ported, now reaches the backbone's config."""
+    cfg = make_cfg(env, **{field: value})
+    if field == "tp":
+        with pytest.raises(NotImplementedError, match="item 5c"):
+            finetune.main(cfg, device="cpu")
+    else:
+        finetune.check_ported_options(cfg)
+        assert build_model(cfg).config.swin_config().remat is True
 
 
 def test_cli_device_cuda_without_a_card_raises(env, tmp_path, monkeypatch):

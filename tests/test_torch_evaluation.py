@@ -159,11 +159,20 @@ def test_gathers_are_the_identity_on_one_process(rng):
     assert gather_strings_to_host0(paths) is paths
 
 
-def test_gathers_refuse_a_larger_world(monkeypatch, rng):
+def test_gathers_take_the_world_from_utils_dist(monkeypatch, rng):
+    """The gathers read the world from ``utils/dist.py``: in a world of two
+    they concatenate the ranks' parts in rank order (JAX's
+    ``process_allgather``), whatever the collective hands back."""
+    from cs_vit_tpu_torch.utils import dist as tdist
+
+    assert twriter.process_count is tdist.process_count
+    a, b = joints(rng, 2), joints(rng, 3)
+    parts = {"rows": [a, b], "strings": [["a.jpg"], ["b.jpg", "c.jpg"]]}
     monkeypatch.setattr(twriter, "process_count", lambda: 2)
-    for call, arg in ((gather_to_host0, joints(rng, 2)), (gather_strings_to_host0, ["a"])):
-        with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-            call(arg)
+    monkeypatch.setattr(twriter, "_all_gather",
+                        lambda obj: parts["strings" if isinstance(obj, list) else "rows"])
+    np.testing.assert_array_equal(gather_to_host0(a), np.concatenate([a, b]))
+    assert gather_strings_to_host0(["a.jpg"]) == ["a.jpg", "b.jpg", "c.jpg"]
 
 
 _GLOO_WORKER = """
@@ -176,20 +185,19 @@ rank = int(sys.argv[1])
 dist.init_process_group("gloo", init_method="tcp://localhost:" + sys.argv[2], world_size=2,
                         rank=rank)
 assert (process_index(), process_count()) == (rank, 2)
-for call, arg in ((gather_to_host0, np.zeros((2, 21, 3))), (gather_strings_to_host0, ["a"])):
-    try:
-        call(arg)
-    except NotImplementedError as e:
-        assert "queue 1, item 5" in str(e)
-    else:
-        raise AssertionError("no refusal")
+rows = gather_to_host0(np.full((rank + 1, 21, 3), rank, np.float32))
+assert rows.shape == (3, 21, 3) and rows.dtype == np.float32, rows.shape
+assert [float(r[0, 0]) for r in rows] == [0.0, 1.0, 1.0], rows[:, 0, 0]
+names = gather_strings_to_host0([f"r{rank}_{i}.jpg" for i in range(rank + 1)])
+assert names == ["r0_0.jpg", "r1_0.jpg", "r1_1.jpg"], names
 dist.destroy_process_group()
-print("refused")
+print("gathered")
 """
 
 
-def test_gathers_refuse_a_gloo_world_of_two():
-    """Two real processes in a gloo group: each process's gathers refuse."""
+def test_gathers_gather_in_rank_order_in_a_gloo_world_of_two():
+    """Two real processes in a gloo group: each gathers numbers and strings
+    of both ranks, rank 0's first."""
     import os
     import socket
     import subprocess
@@ -206,4 +214,4 @@ def test_gathers_refuse_a_gloo_world_of_two():
     outs = [p.communicate(timeout=120) for p in procs]
     for p, (out, err) in zip(procs, outs):
         assert p.returncode == 0, err[-2000:]
-        assert out.strip() == "refused"
+        assert out.strip() == "gathered"

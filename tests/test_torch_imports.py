@@ -3,6 +3,8 @@ and importing them loads none of the file libraries (h5py, cv2,
 tensorboardX, safetensors) that the card's machine may lack: the functions
 that read or write those formats import them. Nor does importing them build
 or load the C crop (``cs_vit_tpu_torch.native``): it is built at first use.
+Nor does importing them start a ``torch.distributed`` process group:
+``parallel.init_distributed`` does that, when an entry point calls it.
 
 Each check runs in a fresh interpreter, so nothing the test session already
 imported can hide an import.
@@ -23,6 +25,8 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "cs_vit_tpu", "h5py", "cv2",
                                     "tensorboardX", "safetensors"))
 assert not bad, bad
+import torch.distributed as dist
+assert not dist.is_initialized()
 native = sys.modules.get("cs_vit_tpu_torch.native")
 assert native is None or native._loaded == {{}}, native._loaded
 print("ok", {count})
@@ -49,7 +53,9 @@ def test_every_port_module_imports_without_jax():
     assert len(mods) >= 15  # every module of the package was imported
     for name in ("native", "parallel", "parallel.prefetch", "ops.heatmap", "data.ho3d",
                  "data.ho3d_fs", "data.ih26m_seq", "data.ih26m_legacy",
-                 "data.ih26m_legacy_aug", "data.mano_gt", "data.fixtures"):
+                 "data.ih26m_legacy_aug", "data.mano_gt", "data.fixtures", "parallel.mesh",
+                 "models.vit", "models.dinov2", "models.ti", "train.sparse_update",
+                 "data.pretrain", "cli.pretrain_ti"):
         assert f"cs_vit_tpu_torch.{name}" in mods, name
 
 
