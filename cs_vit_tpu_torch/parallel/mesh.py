@@ -11,7 +11,7 @@ the one source of this process's rank and of the world's size.
 from __future__ import annotations
 
 import os
-from typing import List, Optional
+from typing import List
 
 import torch
 import torch.distributed as dist
@@ -22,14 +22,14 @@ from ..utils.dist import process_count, process_index
 _TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 
 
-def init_distributed(device="cuda", backend: Optional[str] = None) -> bool:
+def init_distributed(device="cuda") -> bool:
     """Join the process group that ``torchrun``'s environment describes
     (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``/``PORT``) and
     return whether this process is in a group. Without that environment it
     does nothing; in a group already it changes nothing.
 
-    NCCL for a CUDA `device`, gloo for the CPU, unless `backend` says
-    otherwise; a CUDA rank takes card ``LOCAL_RANK`` as its current device.
+    NCCL for a CUDA `device`, gloo for the CPU; a CUDA rank takes card
+    ``LOCAL_RANK`` as its current device.
     """
     if dist.is_initialized():
         return True
@@ -38,7 +38,7 @@ def init_distributed(device="cuda", backend: Optional[str] = None) -> bool:
     dev = torch.device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
-    dist.init_process_group(backend or ("nccl" if dev.type == "cuda" else "gloo"),
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
                             init_method="env://", rank=int(os.environ["RANK"]),
                             world_size=int(os.environ["WORLD_SIZE"]))
     return True

@@ -2,11 +2,14 @@
 ``cs_vit/net/optim.py:6-31``).
 
 The reference's sparse-update experiment: before each AdamW step, the grad of
-every 2-D weight is masked to a random subset of its columns (axis 1: the
-input features of a torch ``[out, in]`` weight, as in the reference). The
-JAX package derives each leaf's permutation from a counter-keyed key; here
-the columns are drawn from an explicit ``torch.Generator``, one permutation
-per 2-D grad in parameter order, or handed in (:func:`mask_columns_`).
+every 2-D weight is masked to a random subset of its input columns: axis 1
+of a torch ``[out, in]`` weight, as in the reference. Here the port follows
+the reference and the JAX package's docstring, not the JAX package's code:
+that masks axis 1 of a flax kernel, which is ``[in, out]``, so it keeps a
+subset of the output features instead. The JAX package derives each leaf's
+permutation from a counter-keyed key; here the columns are drawn from an
+explicit ``torch.Generator``, one permutation per 2-D grad in parameter
+order, or handed in (:func:`mask_columns_`).
 """
 
 from __future__ import annotations
