@@ -108,8 +108,23 @@ order, failing (non-zero exit, no result line) at the first phase that fails:
    step time and peak memory on one batch; tivit's loss falls over
    PRETRAIN_CURVE steps; dino moves only the student's MLPs, keeps the
    teacher at the EMA of the student bit for bit and moves the centre; ti
-   moves only the transformation group; one f32 TIViT forward on the card
-   against the CPU within a floor measured in the run;
+   moves only the transformation group; two gloo ranks on the one card, a
+   ``tivit`` and a ``dino`` step each on half of the b64 batch, held against
+   the one-process step on the whole batch (loss, logs, every trained grad,
+   the transformation group's statistics, the centre) within four times
+   the one-process step's one-ulp spread plus a share, the centre equal on
+   both ranks; one f32 TIViT forward on the card against the CPU within a
+   floor measured in the run;
+9c. ``tp``: two gloo ranks on the one card run the flagship f32 spatial
+   step at ``tp`` = 2 (``parallel.tp``, the eager attention path, as JAX's
+   tensor parallelism runs XLA) for TP_STEPS steps on a b8 batch, held
+   against the one-process eager step (losses, grad norms, every parameter)
+   within TP_FLOOR times a floor measured in the run, the replicated
+   tensors bit-identical on both ranks; a rank's step time, peak memory and
+   all-reduces a step;
+9d. ``tools``: ``tools.demo`` on its synthetic frame writes its PNG, and a
+   ``utils.trace`` of one served b8 flagship forward holds the whole-block
+   kernels and a ``utils.annotate`` span;
 10. trains the flagship model in the temporal phase at batch 8, realtime T=3 and full T=5 on
    the attention-only kernel: the f32 backbone tokens and the f32 step
    against the eager path,
@@ -313,6 +328,22 @@ DP_STEPS, DP_SEED, DP_TIMEOUT = 3, 100, 300
 PRETRAIN_DIR = "_chip_smoke_pretrain"
 PRETRAIN_HW, PRETRAIN_BATCH, PRETRAIN_STEPS, PRETRAIN_CURVE = (480, 640), 64, 4, 10
 PRETRAIN_ARGS = []
+# the pretrain phase's two gloo ranks (PRETRAIN_DIR + "_world"): a tivit and a
+# dino step each on half of the b64 batch, held against the one-process step
+# on the whole batch to four times that step's own spread when the images
+# move by one ulp plus this share of each value's largest magnitude
+PRETRAIN_WORLD_REL = {"loss": 1e-5, "grad": 1e-3, "stat": 1e-5}
+# the tp phase (TP_DIR, git-ignored): two gloo ranks on the one card run the
+# flagship f32 step at tp = 2, TP_STEPS steps on the b8 batch with the
+# droppath generator reseeded to TP_SEED before each, within TP_TIMEOUT
+# seconds; held against the one-process eager step to TP_FLOOR times the
+# larger of the kernel step's miss and the eager step's one-ulp spread
+TP_DIR = "_chip_smoke_tp"
+TP_STEPS, TP_SEED, TP_TIMEOUT, TP_FLOOR = 3, 200, 600, 4
+# the tools phase (TOOLS_DIR, git-ignored): the whole-block kernels a trace of
+# one served forward must hold, as the profiler names them
+TOOLS_DIR = "_chip_smoke_tools"
+TRACE_KERNELS = ("gemm_bias_act_wgmma_kernel", "window_attn_tc_kernel", "ln_residual_kernel")
 # the f32 TIViT forward, card against CPU: the share of each value's largest
 # magnitude the floor adds to four times the CPU's one-ulp spread, about ten
 # times the miss measured on an H100 (encode 6.1e-6 of 4.45, total and
@@ -2652,6 +2683,36 @@ def dp_rank(rank: int, port: str, work: str) -> int:
     return 0
 
 
+def run_ranks(flag: str, work: str, timeout: float, tag: str) -> None:
+    """Two rank processes of this script (``chip_smoke.py FLAG RANK PORT WORK
+    DEV BACKBONE IMG``, the parent's settings), a gloo world on a free
+    localhost port; fails if one does not exit 0 within `timeout` s, and
+    stops both in any case."""
+    import os.path as osp
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = str(sock.getsockname()[1])
+    procs = [subprocess.Popen([sys.executable, osp.abspath(__file__), flag, str(r), port, work,
+                               DEV, BACKBONE, str(IMG)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, (_, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            print(err[-4000:], file=sys.stderr)
+            fail(f"{tag}: gloo rank {r} exited {p.returncode}")
+
+
 def two_ranks(torch, bare_step_ms):
     """Two gloo ranks on the one card (NCCL refuses two ranks on one
     device), every tensor on the card, each on half of the b8 batch for
@@ -2663,31 +2724,11 @@ def two_ranks(torch, bare_step_ms):
     import os
     import os.path as osp
     import shutil
-    import socket
 
     work = osp.abspath(PARALLEL_DIR + "_ranks")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = str(sock.getsockname()[1])
-    procs = [subprocess.Popen([sys.executable, osp.abspath(__file__), "--dp-rank", str(r), port,
-                               work, DEV, BACKBONE, str(IMG)], stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True)
-             for r in range(2)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=DP_TIMEOUT))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, (p, (_, err)) in enumerate(zip(procs, outs)):
-        if p.returncode != 0:
-            print(err[-4000:], file=sys.stderr)
-            fail(f"parallel: gloo rank {r} exited {p.returncode}")
+    run_ranks("--dp-rank", work, DP_TIMEOUT, "parallel")
     ranks = [torch.load(osp.join(work, f"rank{r}.pt"), weights_only=True) for r in range(2)]
 
     model = train_model(torch)
@@ -2847,6 +2888,9 @@ def pretrain(torch, have):
                 fail("pretrain ti: the stage moved more or less than the transformation group")
         del run, fresh, step, images
         release(torch)
+    ds = pretrain_ti.build_dataset("coco", root, args.img_size)
+    pretrain_world(torch, torch.from_numpy(np.stack(
+        [ds[i] for i in range(args.batch_size)])).to(DEV))
     shutil.rmtree(work)
     tivit_card_vs_cpu(torch)
 
@@ -2895,6 +2939,384 @@ def tivit_card_vs_cpu(torch):
             fail(f"pretrain: the card's f32 TIViT {k} is further from the CPU's than the floor")
     del model
     release(torch)
+
+
+def count_collectives(torch):
+    """Wrap ``torch.distributed.all_reduce`` so that it counts its calls and
+    bytes; returns the counter (a dict) and a function that unwraps it."""
+    import torch.distributed as dist
+
+    real = dist.all_reduce
+    counter = {"calls": 0, "bytes": 0}
+
+    def counted(tensor, *args, **kwargs):
+        counter["calls"] += 1
+        counter["bytes"] += tensor.numel() * tensor.element_size()
+        return real(tensor, *args, **kwargs)
+
+    dist.all_reduce = counted
+
+    def restore():
+        dist.all_reduce = real
+
+    return counter, restore
+
+
+def tp_model(torch, tp):
+    """The flagship Poser as ``cli.finetune --tp`` builds it (the eager path
+    for ``tp`` > 1), seeded f32 weights, on the card."""
+    from cs_vit_tpu_torch.cli.common import build_model
+    from cs_vit_tpu_torch.config import FinetuneConfig
+    from cs_vit_tpu_torch.models import init_poser_weights
+
+    cfg = FinetuneConfig(exp="chip_smoke", backbone=BACKBONE, img_size=IMG, phase="spatial",
+                         tp=tp)
+    model = build_model(cfg)
+    init_poser_weights(model, 0)
+    return model.to(DEV)
+
+
+def tp_steps(torch, state, step, batch):
+    """TP_STEPS f32 steps on `batch`, the droppath generator reseeded to
+    TP_SEED before each: (losses, grad norms, step ms, the last step's peak
+    device memory above the resident)."""
+    gen = torch.Generator(device=DEV)
+    losses, norms, times, peak = [], [], [], None
+    for i in range(TP_STEPS):
+        gen.manual_seed(TP_SEED)
+        sync(torch)
+        if i == TP_STEPS - 1 and DEV == "cuda":
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, met = step(state, batch, gen)
+        sync(torch)
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+    if DEV == "cuda":
+        peak = torch.cuda.max_memory_allocated() - resident
+    return losses, norms, times, peak
+
+
+def tp_rank(rank: int, port: str, work: str) -> int:
+    """One of two gloo ranks on the one card (``chip_smoke.py --tp-rank RANK
+    PORT WORK DEV BACKBONE IMG``): the flagship Poser sharded at ``tp`` = 2
+    (a (1, 2) mesh), TP_STEPS f32 steps on the b8 batch with the droppath
+    generator reseeded to TP_SEED before each, the collectives of the last
+    step counted; then its replicated tensors against rank 0's (broadcast),
+    and rank 0 writes the whole parameters after the steps. Writes
+    WORK/tp<RANK>.pt."""
+    import torch
+    import torch.distributed as dist
+
+    from cs_vit_tpu_torch.parallel import make_mesh
+    from cs_vit_tpu_torch.parallel import tp
+    from cs_vit_tpu_torch.train import TrainState, build_optimizer, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=2,
+                            rank=rank)
+    mesh = make_mesh(n_model=2)
+    model = tp_model(torch, 2)
+    specs = tp.shard_model(model, mesh)
+    opt = build_optimizer(model, "spatial", TRAIN_LR)
+    tp.shard_optimizer(opt, model, mesh)
+    state = TrainState.create(model, opt)
+    step = make_train_step(model, opt, "spatial", mesh=mesh)
+    batch = train_batch(torch, 8, seed=10)
+    counter = {}
+
+    def counted_step(state, batch, gen):
+        nonlocal counter
+        counter, restore = count_collectives(torch)
+        try:
+            return step(state, batch, gen)
+        finally:
+            restore()
+
+    losses, norms, times, peak = tp_steps(torch, state, counted_step, batch)
+    local = model.state_dict()
+    differ = []
+    for name, t in local.items():
+        if specs.get(name) is None:
+            ref = t.clone()
+            dist.broadcast(ref, src=0)
+            if not torch.equal(ref, t):
+                differ.append(name)
+    full = tp.gather_state_dict({k: v.detach() for k, v in model.named_parameters()}, specs,
+                                mesh)
+    out = {"losses": losses, "norms": norms, "times": times, "peak": peak,
+           "collectives": counter, "replicated": sum(s is None for s in specs.values()),
+           "sharded": sum(s is not None for s in specs.values()), "differ": differ}
+    if rank == 0:
+        out["params"] = {k: v.detach().cpu() for k, v in full.items()}
+    torch.save(out, f"{work}/tp{rank}.pt")
+    dist.destroy_process_group()
+    return 0
+
+
+def tensor_parallel(torch):
+    """Phase tp: two gloo ranks on the one card (NCCL refuses two ranks on
+    one device) run the flagship f32 spatial step at ``tp`` = 2, b8, TF32
+    off, TP_STEPS steps (``tp_rank``), held against the one-process eager
+    step on the same batch and droppath draws: each step's loss and grad
+    norm, and every parameter after the steps, within TP_FLOOR times the
+    larger of what the one-process kernel step misses the eager step by and
+    what the eager step moves by when the images move by one ulp (a floor
+    measured here); the replicated tensors of the two ranks bit-identical."""
+    import os
+    import os.path as osp
+    import shutil
+
+    work = osp.abspath(TP_DIR)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    run_ranks("--tp-rank", work, TP_TIMEOUT, "tp")
+    ranks = [torch.load(osp.join(work, f"tp{r}.pt"), weights_only=True) for r in range(2)]
+
+    from cs_vit_tpu_torch.train import TrainState, build_optimizer, make_train_step
+
+    one = {}
+    for name, impl in (("eager", "eager"), ("fused", "fused"), ("moved", "eager")):
+        model = tp_model(torch, 1)
+        model.backbone.set_attention_impl(impl)
+        state = TrainState.create(model, build_optimizer(model, "spatial", TRAIN_LR))
+        step = make_train_step(model, state.optimizer, "spatial")
+        batch = train_batch(torch, 8, seed=10)
+        if name == "moved":  # the images one ulp up
+            batch["patches"] = torch.nextafter(batch["patches"],
+                                               torch.full_like(batch["patches"], 2.0))
+        losses, norms, times, peak = tp_steps(torch, state, step, batch)
+        one[name] = {"losses": losses, "norms": norms, "times": times, "peak": peak,
+                     "params": {k: v.detach().cpu() for k, v in model.named_parameters()}}
+        del model, state, step
+        release(torch)
+    eager, got = one["eager"], ranks[0]
+
+    def misses(a):
+        """(loss, grad norm, parameters): `a`'s largest miss of the eager step."""
+        return (max(abs(x - y) for x, y in zip(a["losses"], eager["losses"])),
+                max(abs(x - y) for x, y in zip(a["norms"], eager["norms"])),
+                max(float((a["params"][k] - v).abs().max()) for k, v in eager["params"].items()))
+
+    ok = True
+    for name, miss, kernel, moved in zip(("loss", "grad_norm", "params"), misses(got),
+                                         misses(one["fused"]), misses(one["moved"])):
+        floor = TP_FLOOR * max(kernel, moved)
+        good = miss <= floor
+        ok &= good
+        print(f"tp: f32 {name} over {TP_STEPS} steps, tp=2 vs the one-process eager step: "
+              f"max|diff| {miss:.4g}, floor {floor:.4g} ({TP_FLOOR} x the larger of the "
+              f"one-process kernel step's miss {kernel:.4g} and the eager step's own with the "
+              f"images one ulp up {moved:.4g}) {'ok' if good else 'FAIL'}")
+    same = not ranks[0]["differ"] and not ranks[1]["differ"]
+    print(f"tp: {got['replicated']} replicated and {got['sharded']} sharded parameters; "
+          f"replicated tensors bit-identical on both ranks: {same}; losses {got['losses']} "
+          f"(one process, eager {eager['losses']}, kernel {one['fused']['losses']})")
+    if not (ok and same):
+        fail("tp: the tp=2 step disagrees with the one-process step, or the model peers' "
+             f"replicated tensors differ ({ranks[1]['differ'][:5]})")
+    card = nvidia_smi_line() if DEV == "cuda" else "the CPU"
+    for r, rank in enumerate(ranks):
+        c = rank["collectives"]
+        print(f"tp_step_ms_b8_tp2 rank {r}: {statistics.median(rank['times'][1:]):.3f} (median of "
+              f"{TP_STEPS - 1} after the first; f32), peak {gib(rank['peak'])} above the "
+              f"resident, {c['calls']} all-reduces a step ({c['bytes'] / 2**20:.1f} MiB) on "
+              f"{card}")
+    fused = one["fused"]
+    print(f"tp: the one-process f32 b8 step: eager {statistics.median(eager['times'][1:]):.3f} "
+          f"ms, peak {gib(eager['peak'])}; kernel {statistics.median(fused['times'][1:]):.3f} "
+          f"ms, peak {gib(fused['peak'])}")
+    shutil.rmtree(work)
+
+
+def pretrain_args(mode: str, root: str = "none"):
+    from cs_vit_tpu_torch.cli import pretrain_ti
+
+    return pretrain_ti.build_argparser().parse_args(
+        ["--exp", f"chip_smoke_{mode}", "--mode", mode, "--data_root", root, "--device", DEV]
+        + PRETRAIN_ARGS)
+
+
+def pretrain_run(torch, mode, args):
+    """(run, step) of `mode` as ``cli.pretrain_ti`` sets it up, on the card."""
+    from cs_vit_tpu_torch.cli import pretrain_ti
+
+    if mode == "tivit":
+        run = pretrain_ti.tivit_setup(args, torch.device(DEV))
+        return run, pretrain_ti.make_tivit_step(run)
+    run = pretrain_ti.dino_setup(args, torch.device(DEV))
+    return run, pretrain_ti.make_dino_step(run, args.teacher_momentum)
+
+
+def pretrain_result(run, mode, loss, logs):
+    """What a pretraining step is held by: the loss, the logs, the grads of
+    the trained parameters, the transformation group's statistics, the
+    centre (on the CPU)."""
+    module = run["model"] if mode == "tivit" else run["student"]
+    stats = run["model"].trans_grp if mode == "tivit" else run["trans"]
+    return {"loss": float(loss), "logs": {k: float(v) for k, v in logs.items()},
+            "grads": {n: p.grad.detach().cpu() for n, p in module.named_parameters()
+                      if p.grad is not None},
+            "stats": {n: b.detach().cpu() for n, b in stats.named_buffers()
+                      if n.endswith(("running_mean", "running_var"))},
+            "center": run["center"].detach().cpu() if mode != "tivit" else None}
+
+
+def pretrain_rank(rank: int, port: str, work: str) -> int:
+    """One of two gloo ranks on the one card (``chip_smoke.py --pretrain-rank
+    RANK PORT WORK DEV BACKBONE IMG``): a step of ``tivit`` and of ``dino`` at
+    the parent's widths (WORK/images.pt holds its PRETRAIN_ARGS) on its half
+    of the images there, the draws of the whole batch from the generator the
+    one-process step drew from; writes WORK/pretrain<RANK>.pt."""
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=2,
+                            rank=rank)
+    global PRETRAIN_ARGS
+    payload = torch.load(f"{work}/images.pt", weights_only=True)
+    images, PRETRAIN_ARGS = payload["images"], payload["args"]
+    half = images.shape[0] // 2
+    mine = images[rank * half:(rank + 1) * half].to(DEV)
+    out = {}
+    for mode in ("tivit", "dino"):
+        run, step = pretrain_run(torch, mode, pretrain_args(mode))
+        sync(torch)
+        t0 = time.perf_counter()
+        loss, logs = step(mine, torch.Generator(device=DEV).manual_seed(1))
+        sync(torch)
+        out[mode] = {**pretrain_result(run, mode, loss, logs),
+                     "ms": (time.perf_counter() - t0) * 1e3}
+        del run, step
+        release(torch)
+    torch.save(out, f"{work}/pretrain{rank}.pt")
+    dist.destroy_process_group()
+    return 0
+
+
+def pretrain_world(torch, images):
+    """Two gloo ranks on the one card, each a ``tivit`` and a ``dino`` step on
+    half of the b64 batch (``pretrain_rank``), held against the one-process
+    step on the whole batch: the loss, the logs, every trained grad, the
+    transformation group's statistics and the centre within four times the
+    one-process step's own spread when the images move by one ulp plus a
+    share of the value (PRETRAIN_WORLD_REL); the centre equal on both
+    ranks."""
+    import os
+    import os.path as osp
+    import shutil
+
+    B = images.shape[0]
+    work = osp.abspath(PRETRAIN_DIR + "_world")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    torch.save({"images": images.cpu(), "args": PRETRAIN_ARGS}, osp.join(work, "images.pt"))
+    ref, spread = {}, {}
+    moved = torch.nextafter(images, torch.full_like(images, 2.0))
+    for mode in ("tivit", "dino"):
+        results = []
+        for x in (images, moved):
+            run, step = pretrain_run(torch, mode, pretrain_args(mode))
+            results.append(pretrain_result(run, mode, *step(
+                x, torch.Generator(device=DEV).manual_seed(1))))
+            del run, step
+            release(torch)
+        ref[mode], spread[mode] = results
+    run_ranks("--pretrain-rank", work, TP_TIMEOUT, "pretrain")
+    ranks = [torch.load(osp.join(work, f"pretrain{r}.pt"), weights_only=True) for r in range(2)]
+    card = nvidia_smi_line() if DEV == "cuda" else "the CPU"
+    for mode in ("tivit", "dino"):
+        want, moved_r = ref[mode], spread[mode]
+        rows = [("loss", ranks[0][mode]["loss"], want["loss"], moved_r["loss"], "loss")]
+        rows += [(f"logs.{k}", ranks[0][mode]["logs"][k], v, moved_r["logs"][k], "loss")
+                 for k, v in want["logs"].items()]
+        rows += [(f"grad {n}", ranks[0][mode]["grads"][n], g, moved_r["grads"][n], "grad")
+                 for n, g in want["grads"].items()]
+        rows += [(f"stat {n}", ranks[0][mode]["stats"][n], s, moved_r["stats"][n], "stat")
+                 for n, s in want["stats"].items()]
+        if want["center"] is not None:
+            rows.append(("centre", ranks[0][mode]["center"], want["center"], moved_r["center"],
+                         "stat"))
+        worst, bad = (0.0, ""), []
+        for name, got, w, m, kind in rows:
+            got, w, m = (torch.as_tensor(v).double() for v in (got, w, m))
+            miss = float((got - w).abs().max())
+            floor = 4 * float((m - w).abs().max()) + PRETRAIN_WORLD_REL[kind] * float(
+                w.abs().max())
+            ratio = miss / floor if floor > 0 else (0.0 if miss == 0 else math.inf)
+            worst = max(worst, (ratio, name))
+            if not miss <= floor:
+                bad.append(f"{name} {miss:.3g} > {floor:.3g}")
+        centres_equal = want["center"] is None or torch.equal(ranks[0][mode]["center"],
+                                                             ranks[1][mode]["center"])
+        print(f"pretrain: two gloo ranks, {mode} b{B // 2} x 2 vs one process b{B}: {len(rows)} "
+              f"values "
+              f"(loss, logs, {len(want['grads'])} grads, statistics"
+              f"{', centre' if want['center'] is not None else ''}), worst miss / floor "
+              f"{worst[0]:.3f} ({worst[1]}); loss {ranks[0][mode]['loss']:.6f} / "
+              f"{ranks[1][mode]['loss']:.6f} vs {want['loss']:.6f}; centres equal on both ranks "
+              f"{centres_equal}")
+        print(f"pretrain_{mode}_two_rank_step_ms_b{B // 2}x2 {ranks[0][mode]['ms']:.3f} / "
+              f"{ranks[1][mode]['ms']:.3f} (rank 0 / 1, one step, f32) on {card}")
+        if bad or not centres_equal:
+            fail(f"pretrain {mode}: two ranks disagree with the one-process step: {bad[:5]}")
+    shutil.rmtree(work)
+
+
+def tools(torch):
+    """Phase tools: ``tools.demo`` on its synthetic frame (the default
+    ``swinv2-tiny-256`` config, random weights) writes its PNG; ``trace`` of
+    one served b8 forward of the flagship Poser through ``PoserSession``
+    holds the whole-block kernels (TRACE_KERNELS) and an ``annotate`` span."""
+    import os
+    import os.path as osp
+    import shutil
+
+    import cv2
+    import numpy as np
+
+    from cs_vit_tpu_torch.config import FinetuneConfig
+    from cs_vit_tpu_torch.serving import PoserSession
+    from cs_vit_tpu_torch.tools import demo
+    from cs_vit_tpu_torch.utils import annotate, trace
+
+    work = osp.abspath(TOOLS_DIR)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    png = osp.join(work, "demo.png")
+    out, _ = printed(demo.main, ["--out", png, "--device", DEV])
+    img = cv2.imread(png)
+    if img is None or img.shape != (256, 256, 3) or not np.isfinite(out["joint_cam"]).all():
+        fail(f"tools: demo wrote {None if img is None else img.shape}, joint_cam finite "
+             f"{np.isfinite(out['joint_cam']).all()}")
+    print(f"tools: demo on the synthetic frame wrote a {img.shape} PNG; wrist "
+          f"{out['joint_cam'][0]} mm")
+    cfg = FinetuneConfig(exp="chip_smoke", backbone=BACKBONE, img_size=IMG,
+                         phase="inference", attention_impl="auto")
+    session = PoserSession(cfg, batch_size=8, dtype="bfloat16", device=DEV)
+    req = crop_requests(np.random.default_rng(0))(8)
+    session.predict_crops(*req)
+    sync(torch)
+    with trace(osp.join(work, "trace")) as prof:
+        with annotate("chip_smoke_serve_b8"):
+            session.predict_crops(*req)
+            sync(torch)
+    with open(prof.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [str(e.get("name", "")) for e in events]
+    found = {k: sum(k in n for n in names) for k in TRACE_KERNELS + ("chip_smoke_serve_b8",)}
+    print(f"tools: trace of one served b8 forward ({len(events)} events, "
+          f"{osp.getsize(prof.trace_path) / 2**20:.1f} MiB): {json.dumps(found)}")
+    if (DEV == "cuda" and not all(found.values())) or not found["chip_smoke_serve_b8"]:
+        fail(f"tools: the trace lacks a kernel or the annotate span: {found}")
+    del session
+    release(torch)
+    shutil.rmtree(work)
 
 
 def cfg_depths(cfg):
@@ -3465,8 +3887,14 @@ def main() -> int:
     with phase("parallel"):
         parallel(torch, fb, have, step_ms)
 
+    with phase("tp"):
+        tensor_parallel(torch)
+
     with phase("pretrain"):
         pretrain(torch, have)
+
+    with phase("tools"):
+        tools(torch)
 
     with phase("temporal"):
         temporal = {name: check_temporal(torch, launches, sup, T)
@@ -3560,8 +3988,12 @@ def main() -> int:
     return 0
 
 
+RANK_ENTRIES = {"--dp-rank": "dp_rank", "--tp-rank": "tp_rank",
+                "--pretrain-rank": "pretrain_rank"}
+
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--dp-rank"]:
+    if sys.argv[1:2] and sys.argv[1] in RANK_ENTRIES:
         DEV, BACKBONE, IMG = sys.argv[5], sys.argv[6], int(sys.argv[7])
-        sys.exit(dp_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
+        sys.exit(globals()[RANK_ENTRIES[sys.argv[1]]](int(sys.argv[2]), sys.argv[3],
+                                                      sys.argv[4]))
     sys.exit(main())

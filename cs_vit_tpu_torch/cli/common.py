@@ -17,6 +17,7 @@ from ..config import FinetuneConfig
 from ..data import HO3D, ConcatDataset, DataLoader, DexYCB, InterHand26MSeq
 from ..mano import ManoLayer, find_and_load
 from ..models import Poser, PoserConfig
+from ..parallel import make_mesh
 from ..utils.dist import process_count, process_index
 
 _ASSET_DIR = osp.join(osp.dirname(__file__), "..", "assets")
@@ -100,7 +101,10 @@ def poser_config_from(cfg: FinetuneConfig) -> PoserConfig:
         persp_decorate=cfg.persp_decorate,
         image_size=cfg.img_size,
         global_positioning=cfg.global_positioning,
-        attention_impl=resolve_attention_impl(cfg.attention_impl),
+        # tp > 1: the eager path (JAX's "xla"), which tensor parallelism
+        # shards; a hand-written kernel has no partitioning rule
+        attention_impl="eager" if getattr(cfg, "tp", 1) > 1
+        else resolve_attention_impl(cfg.attention_impl),
         remat=cfg.remat,
     )
 
@@ -211,15 +215,35 @@ def build_datasets(cfg: FinetuneConfig, split: str) -> ConcatDataset:
     return ConcatDataset(datasets)
 
 
-def build_loader(cfg: FinetuneConfig, dataset, shuffle: bool) -> DataLoader:
+def tp_mesh(cfg: FinetuneConfig):
+    """The ``(data, model)`` mesh of ``cfg.tp`` > 1 over the world (None for
+    ``tp`` 1): ``n_data`` x ``tp`` ranks, ``batch_size`` divisible by
+    ``n_data`` (JAX's assert, ``cs_vit_tpu/cli/finetune.py:134``)."""
+    if getattr(cfg, "tp", 1) <= 1:
+        return None
+    if process_count() % cfg.tp:
+        raise ValueError(f"tp={cfg.tp} needs a world of n_data x {cfg.tp} processes (torchrun), "
+                         f"not {process_count()}")
+    mesh = make_mesh(n_model=cfg.tp)
+    if cfg.batch_size % mesh.n_data:
+        raise ValueError(f"batch {cfg.batch_size} not divisible by the data axis {mesh.n_data}")
+    return mesh
+
+
+def build_loader(cfg: FinetuneConfig, dataset, shuffle: bool, mesh=None) -> DataLoader:
+    """The loader of this process's shard: one shard a rank, or under tensor
+    parallelism (`mesh`) one a model group, whose ranks read the same rows
+    (a model group is the counterpart of one JAX process)."""
+    shards, index = ((process_count(), process_index()) if mesh is None
+                     else (mesh.n_data, mesh.data_rank))
     return DataLoader(
         dataset,
         batch_size=cfg.batch_size,
         shuffle=shuffle,
         drop_last=True,  # every step sees batch_size, as in the JAX package
         seed=42,
-        num_shards=process_count(),
-        shard_index=process_index(),
+        num_shards=shards,
+        shard_index=index,
         num_workers=cfg.num_workers,
     )
 

@@ -6,6 +6,13 @@ python -m cs_vit_tpu_torch.cli.evaluate --exp myexp --data dexycb --eval_ckpt <p
 The eval checkpoint is one of this package's ``.pt`` files (what
 ``cli.finetune`` writes, or ``tools/export_torch_ckpt.py`` from a JAX orbax
 checkpoint).
+
+With ``tp`` > 1 (the config's, or ``--tp``) the world is JAX's ``(data,
+model)`` mesh (``parallel.tp``): each model group holds one sharded copy of
+the Poser and reads one shard of the test split, and the gathers run over
+the data group, so each row is written once:
+
+torchrun --nproc_per_node=2 -m cs_vit_tpu_torch.cli.evaluate --tp 2 ...
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from ..evaluation import (
 )
 from ..models import init_poser_weights
 from ..parallel import init_distributed
+from ..parallel import tp as tensor_parallel
 from ..serving import INIT_SEED, load_checkpoint_state_dict
 from ..train import make_eval_step, merge_params
 from ..utils.dist import process_index
@@ -36,8 +44,8 @@ from .common import (
     build_loader,
     build_model,
     resolve_device,
+    tp_mesh,
 )
-from .finetune import check_ported_options
 
 
 def main(cfg: FinetuneConfig, ckpt_root: str = "./checkpoints", h5_path: str | None = None,
@@ -51,9 +59,10 @@ def main(cfg: FinetuneConfig, ckpt_root: str = "./checkpoints", h5_path: str | N
     if not ((cfg.phase == "temporal" and cfg.temporal_supervision == "realtime")
             or cfg.phase == "spatial"):
         raise ValueError("eval supports spatial or temporal+realtime")
-    check_ported_options(cfg)
     device = resolve_device(device)
     init_distributed(device)
+    mesh = tp_mesh(cfg)
+    group = None if mesh is None else mesh.data_group
 
     is_main = process_index() == 0
     print_ = wrap_prefix_print(f"[{process_index()}] ") if is_main else nop
@@ -69,7 +78,7 @@ def main(cfg: FinetuneConfig, ckpt_root: str = "./checkpoints", h5_path: str | N
 
     if dataset is None:
         dataset = build_datasets(cfg, "test")
-    loader = build_loader(cfg, dataset, shuffle=False)
+    loader = build_loader(cfg, dataset, shuffle=False, mesh=mesh)
 
     # latent constraints are train-only; eval drops them (ref `eval.py:146`)
     cfg.num_latent_layer = None
@@ -81,6 +90,8 @@ def main(cfg: FinetuneConfig, ckpt_root: str = "./checkpoints", h5_path: str | N
         model.load_state_dict(merged, strict=True)
         print_(f"loaded eval ckpt ({len(skipped)} unmatched leaves)")
     model.to(device).eval()
+    if mesh is not None:
+        tensor_parallel.shard_model(model, mesh)
     eval_step = make_eval_step(model, phase="inference")
 
     own_writer = writer is None
@@ -99,11 +110,11 @@ def main(cfg: FinetuneConfig, ckpt_root: str = "./checkpoints", h5_path: str | N
         joint_reproj_gt = host_batch["joint_img"][:, -1]
 
         writer.append(
-            gather_strings_to_host0(imgs_path),
-            gather_to_host0(joint_cam_gt),
-            gather_to_host0(joint_cam_pred[:, -1]),
-            gather_to_host0(joint_reproj_gt),
-            gather_to_host0(reproj_pred[:, -1]),
+            gather_strings_to_host0(imgs_path, group),
+            gather_to_host0(joint_cam_gt, group),
+            gather_to_host0(joint_cam_pred[:, -1], group),
+            gather_to_host0(joint_reproj_gt, group),
+            gather_to_host0(reproj_pred[:, -1], group),
         )
 
     # one-batch software pipeline: batch N+1's forward is issued before
@@ -146,9 +157,13 @@ def cli(argv=None):
     p.add_argument("--seq_len", type=int, default=1)
     p.add_argument("--batch_size", type=int, default=16)
     p.add_argument("--eval_ckpt", type=str, required=True)
+    p.add_argument("--tp", type=int, default=None,
+                   help="tensor-parallel size (default: the config's)")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     args = vars(p.parse_args(argv))
     device = args.pop("device")
+    if args["tp"] is None:
+        del args["tp"]
 
     cfg_path = os.path.join("./checkpoints", args["exp"], "config.json")
     if not os.path.exists(cfg_path):

@@ -18,6 +18,16 @@ shard of the data, the step averages across the ranks as JAX's
 checkpoints:
 
 torchrun --nproc_per_node=1 -m cs_vit_tpu_torch.cli.finetune ...
+
+With ``--tp N`` the world of ``n_data`` x N ranks is JAX's ``(data,
+model)`` mesh (``parallel.tp``): each model group of N consecutive ranks
+holds one copy of the Poser, Megatron-sharded, on the eager attention path,
+and reads one shard of the data; the lr scales with ``n_data``; the
+droppath and latent generators are seeded by the data rank, so that model
+peers draw the same masks; the checkpoint is the one-process one, gathered
+on rank 0, and a resume cuts it to the ranks' shards:
+
+torchrun --nproc_per_node=4 -m cs_vit_tpu_torch.cli.finetune --tp 2 ...
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ import torch
 from ..config import FinetuneConfig
 from ..models import init_poser_weights
 from ..parallel import device_prefetch, init_distributed
+from ..parallel import tp as tensor_parallel
 from ..serving import INIT_SEED, load_checkpoint_state_dict
 from ..train import (
     TrainState,
@@ -43,6 +54,7 @@ from ..train import (
     merge_params,
     restore_checkpoint,
     save_checkpoint,
+    save_payload,
     scaled_lr,
     warmup_cosine_schedule,
 )
@@ -56,18 +68,12 @@ from .common import (
     load_backbone_params,
     load_or_create_config,
     resolve_device,
+    tp_mesh,
 )
 
-# the droppath generator is seeded DROPPATH_SEED + rank (the JAX loop's key
-# 42 + process index), the latent draws' LATENT_SEED + rank
+# the droppath generator is seeded DROPPATH_SEED + data rank (the JAX loop's
+# key 42 + process index), the latent draws' LATENT_SEED + data rank
 DROPPATH_SEED, LATENT_SEED = 42, 1042
-
-
-def check_ported_options(cfg: FinetuneConfig) -> None:
-    """Refuse the config fields whose JAX paths have no port yet."""
-    if cfg.tp > 1:
-        raise NotImplementedError("tensor parallelism (tp > 1) is not ported: ROADMAP queue 1, "
-                                  "item 5c")
 
 
 def main(cfg: FinetuneConfig, ckpt_root: str = "./checkpoints", log_every: int = 20,
@@ -75,18 +81,20 @@ def main(cfg: FinetuneConfig, ckpt_root: str = "./checkpoints", log_every: int =
     """Train `cfg` for epochs ``start..cfg.epoch``, resuming after the last
     checkpoint of ``<ckpt_root>/<cfg.exp>``. `dataset` replaces the one
     ``build_datasets`` would build from `cfg` (same item schema)."""
-    check_ported_options(cfg)
     device = resolve_device(device)
     init_distributed(device)
     rank = process_index()
     is_main = rank == 0
     print_ = wrap_prefix_print(f"[{rank}] ") if is_main else nop
     exp_dir = os.path.join(ckpt_root, cfg.exp)
+    mesh = tp_mesh(cfg)
+    data_rank, n_data = (rank, process_count()) if mesh is None else (mesh.data_rank,
+                                                                      mesh.n_data)
 
     # 1. data
     if dataset is None:
         dataset = build_datasets(cfg, "train")
-    loader = build_loader(cfg, dataset, shuffle=True)
+    loader = build_loader(cfg, dataset, shuffle=True, mesh=mesh)
     steps_per_epoch = len(loader)
 
     # 2. model
@@ -105,11 +113,13 @@ def main(cfg: FinetuneConfig, ckpt_root: str = "./checkpoints", log_every: int =
         model.load_state_dict(merged, strict=True)
         print_(f"loaded spatial ckpt ({len(skipped)} unmatched leaves kept fresh)")
     model.to(device)
+    if mesh is not None:
+        tensor_parallel.shard_model(model, mesh)
+        print_(f"tensor parallel: {mesh.n_data} x {mesh.n_model} ranks (data x model)")
 
     # 3. optimizer + schedule
-    world = process_count()
-    max_lr = scaled_lr(cfg.lr, world, cfg.batch_size)
-    min_lr = scaled_lr(cfg.lr_min, world, cfg.batch_size)
+    max_lr = scaled_lr(cfg.lr, n_data, cfg.batch_size)
+    min_lr = scaled_lr(cfg.lr_min, n_data, cfg.batch_size)
     if cfg.lr_scheduler == "warmup":
         schedule = warmup_cosine_schedule(
             max_lr, min_lr, cfg.warmup_epoch, cfg.cooldown_epoch, steps_per_epoch
@@ -117,6 +127,8 @@ def main(cfg: FinetuneConfig, ckpt_root: str = "./checkpoints", log_every: int =
     else:
         schedule = constant_schedule(max_lr)
     optimizer = build_optimizer(model, cfg.phase, schedule)
+    if mesh is not None:
+        tensor_parallel.shard_optimizer(optimizer, model, mesh)
     state = TrainState.create(model, optimizer)
 
     # 4. resume: model (strict), AdamW, step, then the epoch after the saved one
@@ -124,16 +136,20 @@ def main(cfg: FinetuneConfig, ckpt_root: str = "./checkpoints", log_every: int =
     latest = latest_checkpoint(exp_dir)
     if latest:
         print_(f"found checkpoints, resuming from {latest}")
-        restore_checkpoint(latest, state)
+        if mesh is None:
+            restore_checkpoint(latest, state)
+        else:
+            tensor_parallel.restore_checkpoint(latest, state, mesh)
         start_epoch = state.epoch + 1
 
     # 5. the step
     compute_dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else None
-    train_step = make_train_step(model, optimizer, cfg.phase, compute_dtype=compute_dtype)
+    train_step = make_train_step(model, optimizer, cfg.phase, compute_dtype=compute_dtype,
+                                 mesh=mesh)
     tb = TBLogger(os.path.join(exp_dir, "tb_logs") if is_main else None, is_main)
 
-    generator = torch.Generator(device).manual_seed(DROPPATH_SEED + rank)
-    latent_generator = (torch.Generator(device).manual_seed(LATENT_SEED + rank)
+    generator = torch.Generator(device).manual_seed(DROPPATH_SEED + data_rank)
+    latent_generator = (torch.Generator(device).manual_seed(LATENT_SEED + data_rank)
                         if model.latent_trans is not None else None)
 
     for epoch in range(start_epoch, cfg.epoch + 1):
@@ -158,6 +174,9 @@ def main(cfg: FinetuneConfig, ckpt_root: str = "./checkpoints", log_every: int =
                 tb.scalars(metrics["scalar_logs"], global_step)
                 tb.scalar("train/lr", lr_now, global_step)
                 tb.scalar("train/grad", float(metrics["grad_norm"]), global_step)
+                if tb.writer is not None:
+                    tb.image("train/reprojection", reprojection_image(batch, metrics, cfg),
+                             global_step)
                 iter_time = (time.monotonic() - t_log) / log_every
                 print_grouped_losses(
                     epoch, it, steps_per_epoch, iter_time, lr_now,
@@ -175,11 +194,33 @@ def main(cfg: FinetuneConfig, ckpt_root: str = "./checkpoints", log_every: int =
         )
 
         state.epoch = epoch
+        if mesh is not None:  # every rank gathers its model group's shards
+            payload = tensor_parallel.full_checkpoint(state, mesh)
         if is_main:
             print_(f"writing checkpoint for epoch {epoch}")
-            save_checkpoint(exp_dir, epoch, state)
+            if mesh is None:
+                save_checkpoint(exp_dir, epoch, state)
+            else:
+                save_payload(exp_dir, epoch, payload)
     tb.close()
     return state
+
+
+def reprojection_image(batch, metrics, cfg: FinetuneConfig) -> np.ndarray:
+    """The logging step's reprojection grid (ref `finetune.py:245-255`): the
+    first ``min(4, batch)`` rows of the batch and of the step's predicted
+    joints, copied to the host here and only here."""
+    from ..utils.vis import training_reprojection_image
+
+    k = min(4, cfg.batch_size)
+
+    def host(t):
+        return t[:k].float().cpu().numpy()
+
+    return training_reprojection_image(
+        host(batch["patches"]), host(batch["square_bboxes"]), host(batch["focal"]),
+        host(batch["princpt"]), host(metrics["joint_cam_pred"]),
+        host(batch["joint_img"]) if "joint_img" in batch else None)
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -222,7 +263,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--num_workers", type=int, default=None,
                    help="host loader threads (default: config, 8)")
     p.add_argument("--tp", type=int, default=None,
-                   help="tensor-parallel size (not ported: refused above 1)")
+                   help="tensor-parallel size (the model axis of an n_data x tp world of "
+                        "ranks; the eager attention path)")
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     return p
 

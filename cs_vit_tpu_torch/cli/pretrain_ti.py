@@ -17,10 +17,20 @@ angles come from a generator on the device, seeded 7 / 11 / 13 by mode as
 the JAX CLI's keys are. One ``.pt`` checkpoint an epoch under
 ``./checkpoints/<exp>``, with the JAX CLI's keys: ``params`` (tivit; the
 state dict holds the BatchNorm statistics too), ``student``, ``teacher``,
-``trans``, ``center`` (dino) or ``trans`` (ti), and ``epoch``. A world of
-more than one process is refused: the JAX CLI runs one program over a
-device mesh and defines no per-process semantics for the BatchNorm
-statistics or the DINO centre.
+``trans``, ``center`` (dino) or ``trans`` (ti), and ``epoch``.
+
+Under ``torchrun`` (``parallel.init_distributed``) the ranks compute what
+the JAX CLI's one program over a data mesh computes on the global batch:
+each rank reads its shard of the dataset, ``--batch_size`` rows a step;
+every rank draws the scales and angles of the whole global batch from the
+same generator and takes its own rows (:func:`rank_draws`); the
+transformation groups' BatchNorms, the support loss and the DINO centre
+take their statistics over every rank's rows (``parallel.sync_norm``); one
+all-reduce a step averages the loss, the logs and the grads of the tensors
+that have grads; rank 0 alone prints and writes checkpoints. The LoRA
+dropout masks are each rank's own draws (``LORA_DROPOUT_SEED`` + rank).
+
+  torchrun --nproc_per_node=2 -m cs_vit_tpu_torch.cli.pretrain_ti --mode tivit ...
 """
 
 from __future__ import annotations
@@ -32,7 +42,6 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from ..data.base import DataLoader
 from ..data.pretrain import COCO2017, Ego4DHandImage, HIntHandImage
@@ -44,13 +53,16 @@ from ..models.ti import (
     dino_forward,
     dino_stage_mask,
     init_ti_weights,
+    ti_draws,
     ti_forward,
     ti_stage_mask,
     update_teacher,
 )
 from ..models.vit import ViTConfig
+from ..parallel import all_mean_, init_distributed
 from ..train.checkpoint import cpu_state_dict, save_payload
-from ..utils.logging import wrap_prefix_print
+from ..utils.dist import process_count, process_index
+from ..utils.logging import nop, wrap_prefix_print
 from .common import resolve_device
 
 DRAW_SEEDS = {"tivit": 7, "dino": 11, "ti": 13}
@@ -72,14 +84,30 @@ def adamw(params, lr: float) -> torch.optim.AdamW:
     return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=1e-4)
 
 
-def check_world() -> None:
-    world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else int(
-        os.environ.get("WORLD_SIZE", "1"))
-    if world > 1:
-        raise NotImplementedError(
-            f"TI pretraining in a world of {world} processes is not ported: the JAX CLI runs "
-            "one program over a device mesh and defines no per-process BatchNorm statistics "
-            "or DINO centre (ROADMAP queue 1, item 6b)")
+def rank_draws(draws, batch: int):
+    """This rank's (normal, uniform) draws for its `batch` rows: the draws of
+    the world's whole global batch, from `draws` (a generator, which every
+    rank seeds alike) or handed in, rows ``[rank * batch, (rank + 1) *
+    batch)``. So two ranks draw what one process draws for both batches."""
+    world, rank = process_count(), process_index()
+    if isinstance(draws, torch.Generator):
+        draws = ti_draws(batch * world, draws)
+    normal, uniform = draws
+    if normal.shape[0] != batch * world:
+        raise ValueError(f"{normal.shape[0]} draws for a global batch of {batch * world}")
+    rows = slice(rank * batch, (rank + 1) * batch)
+    return normal[rows], uniform[rows]
+
+
+def averaged(loss: torch.Tensor, logs: Dict, optimizer: torch.optim.Optimizer):
+    """(loss, logs) detached, and the optimizer's grads, averaged over the
+    world in one all-reduce: only the tensors that have grads (the identity
+    without a process group)."""
+    loss = loss.detach().clone()
+    logs = {k: v.detach().clone() for k, v in logs.items()}
+    grads = [p.grad for g in optimizer.param_groups for p in g["params"] if p.grad is not None]
+    all_mean_([loss, *grads, *logs.values()])
+    return loss, logs
 
 
 def tivit_setup(args, device) -> Dict:
@@ -123,15 +151,18 @@ def dino_setup(args, device) -> Dict:
 def make_tivit_step(run: Dict) -> Callable:
     """``step(images, draws, dropout_generator=None) -> (loss, logs)``: one
     AdamW step of every TI-ViT parameter; the latent group's BatchNorm
-    statistics move."""
+    statistics move. `images` are this rank's rows, `draws` a generator or
+    the global batch's draws (:func:`rank_draws`)."""
     model, opt = run["model"], run["optimizer"]
 
     def step(images, draws, dropout_generator=None):
         opt.zero_grad(set_to_none=True)
-        out = model(images, train=True, draws=draws, dropout_generator=dropout_generator)
+        out = model(images, train=True, draws=rank_draws(draws, images.shape[0]),
+                    dropout_generator=dropout_generator)
         out["loss"].backward()
+        loss, logs = averaged(out["loss"], out["logs"]["scalar"], opt)
         opt.step()
-        return out["loss"].detach(), {k: v.detach() for k, v in out["logs"]["scalar"].items()}
+        return loss, logs
 
     return step
 
@@ -146,12 +177,13 @@ def make_dino_step(run: Dict, teacher_momentum: float) -> Callable:
     def step(images, draws):
         opt.zero_grad(set_to_none=True)
         loss, logs, new_center = dino_forward(student, teacher, trans, run["center"], images,
-                                              draws)
+                                              rank_draws(draws, images.shape[0]))
         loss.backward()
+        loss, logs = averaged(loss, logs, opt)
         opt.step()
         update_teacher(teacher, student, teacher_momentum)
         run["center"] = new_center.detach()
-        return loss.detach(), {k: v.detach() for k, v in logs.items()}
+        return loss, logs
 
     return step
 
@@ -163,10 +195,11 @@ def make_ti_step(run: Dict) -> Callable:
 
     def step(images, draws):
         opt.zero_grad(set_to_none=True)
-        loss, logs = ti_forward(teacher, trans, images, draws)
+        loss, logs = ti_forward(teacher, trans, images, rank_draws(draws, images.shape[0]))
         loss.backward()
+        loss, logs = averaged(loss, logs, opt)
         opt.step()
-        return loss.detach(), {k: v.detach() for k, v in logs.items()}
+        return loss, logs
 
     return step
 
@@ -186,18 +219,20 @@ def main(args, device="cuda", dataset=None, ckpt_root: str = "./checkpoints") ->
     """Pretrain for ``args.epochs`` epochs; returns the run (its modules,
     optimizer and centre) with ``losses``, one float a step. `dataset`
     replaces the one ``build_dataset`` would build ([S,S,3] float items)."""
-    check_world()
     device = resolve_device(device)
-    print_ = wrap_prefix_print("[0] ")
+    init_distributed(device)
+    rank = process_index()
+    print_ = wrap_prefix_print(f"[{rank}] ") if rank == 0 else nop
     if dataset is None:
         dataset = build_dataset(args.dataset, args.data_root, args.img_size)
     loader = DataLoader(dataset, batch_size=args.batch_size, shuffle=True, drop_last=True,
-                        collate_fn=np.stack, num_workers=args.num_workers)
+                        collate_fn=np.stack, num_workers=args.num_workers,
+                        num_shards=process_count(), shard_index=rank)
     exp_dir = os.path.join(ckpt_root, args.exp)
     draws = torch.Generator(device).manual_seed(DRAW_SEEDS[args.mode])
     if args.mode == "tivit":
         run = tivit_setup(args, device)
-        dropout = (torch.Generator(device).manual_seed(LORA_DROPOUT_SEED)
+        dropout = (torch.Generator(device).manual_seed(LORA_DROPOUT_SEED + rank)
                    if args.lora_rank else None)
         tivit_step = make_tivit_step(run)
         step = lambda images: tivit_step(images, draws, dropout)  # noqa: E731
@@ -216,8 +251,9 @@ def main(args, device="cuda", dataset=None, ckpt_root: str = "./checkpoints") ->
             if (it + 1) % args.log_every == 0:
                 shown = " ".join(f"{k}={float(v):.4f}" for k, v in logs.items())
                 print_(f"E{epoch} it{it + 1} {shown}")
-        save_payload(exp_dir, epoch, _payload(args.mode, run, epoch))
-        print_(f"writing checkpoint for epoch {epoch}")
+        if rank == 0:
+            save_payload(exp_dir, epoch, _payload(args.mode, run, epoch))
+            print_(f"writing checkpoint for epoch {epoch}")
     return run
 
 

@@ -74,27 +74,41 @@ class EvalH5Writer:
             self.h5.close()
 
 
-def _all_gather(obj) -> list:
+def _size(group) -> int:
+    if group is None:
+        return process_count()
+    import torch.distributed as dist
+
+    return dist.get_world_size(group)
+
+
+def _all_gather(obj, group=None) -> list:
     """Every rank's `obj`, in rank order (a pickled all-gather, which NCCL
     and gloo both take)."""
     import torch.distributed as dist
 
-    out = [None] * process_count()
-    dist.all_gather_object(out, obj)
+    out = [None] * _size(group)
+    dist.all_gather_object(out, obj, group=group)
     return out
 
 
-def gather_to_host0(arr: np.ndarray) -> np.ndarray:
-    """Rows of every process, rank-major (ref `eval.py:75-82`); the
-    identity on one process."""
-    if process_count() == 1:
+def _gathered(obj, group) -> list:
+    """:func:`_all_gather` over the world, or over `group` when one is given."""
+    return _all_gather(obj) if group is None else _all_gather(obj, group)
+
+
+def gather_to_host0(arr: np.ndarray, group=None) -> np.ndarray:
+    """Rows of every process (of `group`: under tensor parallelism the data
+    group, never the model peers, which hold the same rows), rank-major (ref
+    `eval.py:75-82`); the identity on one process."""
+    if _size(group) == 1:
         return arr
-    return np.concatenate([np.asarray(a) for a in _all_gather(np.asarray(arr))], axis=0)
+    return np.concatenate([np.asarray(a) for a in _gathered(np.asarray(arr), group)], axis=0)
 
 
-def gather_strings_to_host0(strings: List[str]) -> List[str]:
-    """Strings of every process, rank-major (ref `eval.py:53-72`); the
-    identity on one process."""
-    if process_count() == 1:
+def gather_strings_to_host0(strings: List[str], group=None) -> List[str]:
+    """Strings of every process (of `group`), rank-major (ref
+    `eval.py:53-72`); the identity on one process."""
+    if _size(group) == 1:
         return strings
-    return [s for part in _all_gather(list(strings)) for s in part]
+    return [s for part in _gathered(list(strings), group) for s in part]

@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.sync_norm import global_moments, resolve_group
+
 
 class Linear(nn.Linear):
     """``nn.Linear`` with flax ``Dense`` dtype promotion."""
@@ -63,19 +65,33 @@ class TorchBatchNorm(nn.BatchNorm1d):
     buffers in place, without autograd; a train step that may discard it
     hands the module copies of those buffers. Running statistics are f32
     buffers; the affine runs in f32 and the output keeps the input dtype.
+
+    ``sync_group`` (None by default: this process's rows) names the process
+    group whose ranks' rows the batch statistics span, as one ``jax.jit``
+    program over a mesh normalises the global batch
+    (``parallel.sync_norm``); it takes effect only in a group of more than
+    one rank.
     """
+
+    sync_group = None
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         xf = x.float()
         if train:
-            axes = tuple(range(x.dim() - 1))
-            n = xf.numel() // xf.shape[-1]
-            mean = xf.mean(axes)
-            var = ((xf - mean) ** 2).mean(axes)
+            group = resolve_group(self.sync_group)
+            if group is None:
+                axes = tuple(range(x.dim() - 1))
+                n = xf.numel() // xf.shape[-1]
+                mean = xf.mean(axes)
+                var = ((xf - mean) ** 2).mean(axes)
+            else:
+                mean, var, n = global_moments(xf.reshape(-1, xf.shape[-1]), group)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(1 - m).add_(m * mean)
-                self.running_var.mul_(1 - m).add_(m * (var * (n / max(n - 1.0, 1.0))))
+                unbiased = ((n / (n - 1.0).clamp(min=1.0)).float() if group is not None
+                            else n / max(n - 1.0, 1.0))
+                self.running_var.mul_(1 - m).add_(m * (var * unbiased))
         else:
             mean, var = self.running_mean.float(), self.running_var.float()
         y = (xf - mean) * torch.rsqrt(var + self.eps)
@@ -90,12 +106,18 @@ class MHA(nn.Module):
     standard 1/sqrt(head_dim). Softmax runs in f32 whatever the activation
     dtype. Queries and keys of two dtypes (bf16 queries over f32 patches)
     meet in the promoted dtype, as in the JAX package.
+
+    The heads a call runs are as many as the query projection's outputs hold
+    (``head_dim`` each): all of them, or under tensor parallelism
+    (``parallel/tp.py``) this rank's share, at the full head width, so that
+    the sqrt(head_dim) scale does not change.
     """
 
     def __init__(self, embed_dim: int, num_heads: int, compat_scale: bool = True):
         super().__init__()
         assert embed_dim % num_heads == 0
         self.embed_dim, self.num_heads = embed_dim, num_heads
+        self.head_dim = embed_dim // num_heads
         self.compat_scale = compat_scale
         self.query = Linear(embed_dim, embed_dim)
         self.key = Linear(embed_dim, embed_dim)
@@ -105,16 +127,17 @@ class MHA(nn.Module):
     def forward(self, x: torch.Tensor, ctx: torch.Tensor) -> torch.Tensor:
         B, L, _ = x.shape
         S = ctx.shape[1]
-        H = self.num_heads
-        hd = self.embed_dim // H
-        q = self.query(x).reshape(B, L, H, hd).transpose(1, 2)
+        hd = self.head_dim
+        q = self.query(x)
+        H = q.shape[-1] // hd
+        q = q.reshape(B, L, H, hd).transpose(1, 2)
         k = self.key(ctx).reshape(B, S, H, hd).transpose(1, 2)
         v = self.value(ctx).reshape(B, S, H, hd).transpose(1, 2)
         scale = math.sqrt(hd) if self.compat_scale else 1.0 / math.sqrt(hd)
         dt = torch.promote_types(q.dtype, k.dtype)  # as jnp.einsum promotes
         scores = (q.to(dt) @ k.to(dt).transpose(-1, -2)) * scale
         weights = torch.softmax(scores.float(), dim=-1).to(v.dtype)
-        out = (weights @ v).transpose(1, 2).reshape(B, L, self.embed_dim)
+        out = (weights @ v).transpose(1, 2).reshape(B, L, H * hd)
         return self.output(out)
 
 

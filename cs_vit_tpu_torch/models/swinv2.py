@@ -159,10 +159,20 @@ def _shift_attn_mask(height: int, width: int, window_size: int, shift: int) -> n
 
 
 class Swinv2SelfAttention(nn.Module):
+    """Cosine window attention. A call runs as many heads as the query
+    projection's outputs hold (``head_dim`` each): all of them, or under
+    tensor parallelism (``parallel/tp.py``) this rank's share, at the full
+    head width; ``local_heads`` then cuts the [num_heads, ...] CPB bias and
+    logit scale to that share."""
+
+    # [num_heads, ...] -> this rank's heads (set by parallel.tp)
+    local_heads = None
+
     def __init__(self, dim: int, num_heads: int, window_size: int,
                  pretrained_window_size: int = 0, qkv_bias: bool = True):
         super().__init__()
         self.num_heads, self.window_size = num_heads, window_size
+        self.head_dim = dim // num_heads
         self.logit_scale = nn.Parameter(torch.full((num_heads, 1, 1), math.log(10.0)))
         self.continuous_position_bias_mlp = nn.Sequential(
             Linear(2, 512), nn.ReLU(), Linear(512, num_heads, bias=False)
@@ -197,9 +207,12 @@ class Swinv2SelfAttention(nn.Module):
         """x: [B_, L, C] window tokens; mask: [nW, L, L] additive or None;
         `kernel`: the attention core through :func:`fused_window_attention`
         (the JAX ``"pallas"`` path)."""
-        B_, L, C = x.shape
-        H, hd = self.num_heads, C // self.num_heads
-        q = self.query(x).reshape(B_, L, H, hd).transpose(1, 2)
+        B_, L, _ = x.shape
+        hd = self.head_dim
+        q = self.query(x)
+        H = q.shape[-1] // hd
+        C = H * hd
+        q = q.reshape(B_, L, H, hd).transpose(1, 2)
         k = self.key(x).reshape(B_, L, H, hd).transpose(1, 2)
         v = self.value(x).reshape(B_, L, H, hd).transpose(1, 2)
         if kernel:
@@ -211,8 +224,11 @@ class Swinv2SelfAttention(nn.Module):
             return out.transpose(1, 2).reshape(B_, L, C)
         qn = q / torch.clamp(torch.linalg.vector_norm(q, dim=-1, keepdim=True), min=1e-12)
         kn = k / torch.clamp(torch.linalg.vector_norm(k, dim=-1, keepdim=True), min=1e-12)
-        attn = (qn @ kn.transpose(-1, -2)) * self.logit_scale_value()
-        attn = attn + self.relative_position_bias()[None]
+        scale, rel_bias = self.logit_scale_value(), self.relative_position_bias()
+        if self.local_heads is not None:
+            scale, rel_bias = self.local_heads(scale), self.local_heads(rel_bias)
+        attn = (qn @ kn.transpose(-1, -2)) * scale
+        attn = attn + rel_bias[None]
         if mask is not None:
             nW = mask.shape[0]
             attn = (attn.reshape(B_ // nW, nW, H, L, L) + mask[None, :, None]).reshape(B_, H, L, L)

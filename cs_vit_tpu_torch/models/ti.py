@@ -19,6 +19,14 @@ key (``jax.random.normal`` and ``jax.random.uniform`` of the key's two
 halves). ``stop_gradient`` is ``torch.no_grad()`` exactly where JAX puts it:
 in :func:`dino_forward` the TI term carries no gradient to the student.
 
+In a ``torch.distributed`` world of more than one rank, each holding as
+many rows, the functions compute what the JAX package's one program over a
+data mesh computes on the global batch: the transformation groups'
+BatchNorms take the statistics of every rank's rows, the support loss's
+mean token displacement and the DINO centre's mean are means over every
+row (``parallel.sync_norm``), and the per-rank loss means become the global
+mean once the step averages its grads and losses over the world.
+
 Stage freezing is by parameter name: :func:`dino_stage_mask` trains only the
 student's block MLPs (APLA), :func:`ti_stage_mask` all of the
 transformation group.
@@ -36,6 +44,7 @@ from torch import nn
 
 from ..constants import IMAGENET_MEAN, IMAGENET_STD
 from ..ops.resample import scale_rotate_img
+from ..parallel.sync_norm import WORLD, sync_batch_norms, world_mean
 from .dinov2 import Dinov2Backbone, Dinov2Config
 from .latent import ScaleRotComplexEmbedTransformationGroup, ScaleRotTransformationGroup
 from .vit import ViTConfig, ViTEncoder, ViTMAEDecoderConfig, ViTMAEDecoderNoMask
@@ -46,8 +55,9 @@ Draws = Union[torch.Generator, Tuple[torch.Tensor, torch.Tensor]]
 def support_loss(tokens_delta: torch.Tensor, support: float, alpha: float = 1e-3
                  ) -> torch.Tensor:
     """Margin loss keeping the mean token displacement near `support`
-    (ref :26-42): quadratic below it, logarithmic above."""
-    mean_norm = torch.linalg.vector_norm(tokens_delta, dim=-1).mean()
+    (ref :26-42): quadratic below it, logarithmic above. The mean spans
+    every rank's rows in a world of more than one (``world_mean``)."""
+    mean_norm = world_mean(torch.linalg.vector_norm(tokens_delta, dim=-1).mean())
     delta = support - mean_norm
     quad = alpha * delta**2
     log_term = -delta * torch.log(torch.clamp(mean_norm / support, min=1e-12))
@@ -97,6 +107,7 @@ class TIViT(nn.Module):
         self.trans_grp = ScaleRotTransformationGroup(
             embed_dim=cfg.hidden_size, num_heads=cfg.num_attention_heads,
             compat_scale=compat_scale)
+        sync_batch_norms(self.trans_grp, WORLD)
         self.support_distant = math.sqrt(cfg.hidden_size)
 
     def encode(self, images: torch.Tensor) -> torch.Tensor:
@@ -163,6 +174,7 @@ class TIDinoTransGroup(nn.Module):
         self.trans_grp = ScaleRotComplexEmbedTransformationGroup(
             num_layers=6, embed_dim=embed_dim, num_heads=num_heads, num_p=num_p, num_q=num_p,
             compat_scale=compat_scale)
+        sync_batch_norms(self.trans_grp, WORLD)
 
     def forward(self, patches: torch.Tensor, scale_ratio: torch.Tensor, angle_rad: torch.Tensor,
                 train: bool = False) -> torch.Tensor:
@@ -201,7 +213,8 @@ def dino_forward(student: TIDinoViT, teacher: TIDinoViT, trans: TIDinoTransGroup
     loss_dino = ce(t1, student_out[:B])
     loss_ti = ce(t1, s_out_2) + ce(t2, s_out_1)
     loss = loss_dino + 0.5 * loss_ti
-    new_center = center * center_momentum + teacher_out.mean(0) * (1 - center_momentum)
+    new_center = (center * center_momentum
+                  + world_mean(teacher_out.mean(0)) * (1 - center_momentum))
     return loss, {"total": loss, "dino": loss_dino, "ti": loss_ti}, new_center
 
 

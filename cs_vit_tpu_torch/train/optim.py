@@ -15,7 +15,7 @@
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable, Union
+from typing import Callable, Iterable, List, Optional, Union
 
 import torch
 
@@ -62,7 +62,15 @@ def constant_schedule(lr: float) -> Schedule:
 class PhaseAdamW(torch.optim.AdamW):
     """``torch.optim.AdamW`` over one phase's trainable parameters, with the
     JAX optimizer's schedule and grad clip (:meth:`clip_grads_`,
-    :meth:`scheduled_step`)."""
+    :meth:`scheduled_step`).
+
+    Under tensor parallelism (``parallel.tp.shard_optimizer``) ``sharded``
+    marks the parameters that hold one shard of a tensor split over
+    ``model_group``; :meth:`grad_norm` then sums their squares over the group
+    and counts every replicated tensor once."""
+
+    sharded: Optional[List[bool]] = None
+    model_group = None
 
     def __init__(self, params: Iterable[torch.nn.Parameter], learning_rate: Union[Schedule, float],
                  max_grad_norm: float = 5.0, weight_decay: float = 0.01):
@@ -82,14 +90,26 @@ class PhaseAdamW(torch.optim.AdamW):
         return 0
 
     @torch.no_grad()
+    def grad_norm(self, grads) -> torch.Tensor:
+        """The global norm (f32) of `grads`, one per parameter in
+        :meth:`params` order (None counts as zeros); under tensor parallelism
+        the norm of the whole tensors, the same on every rank."""
+        if self.sharded is None:
+            return global_norm(g for g in grads if g is not None)
+        replicated = [g for g, s in zip(grads, self.sharded) if g is not None and not s]
+        shards = [g for g, s in zip(grads, self.sharded) if g is not None and s]
+        sq = sum_of_squares(shards)
+        torch.distributed.all_reduce(sq, group=self.model_group)
+        return torch.sqrt(sum_of_squares(replicated).to(sq.device) + sq)
+
+    @torch.no_grad()
     def clip_grads_(self) -> torch.Tensor:
         """Clip the parameters' grads in place by their global norm, optax's
         way; returns the pre-clip norm (f32). A parameter without a grad counts
         as zeros."""
-        grads = [p.grad for p in self.params() if p.grad is not None]
-        norm = global_norm(grads)
+        norm = self.grad_norm([p.grad for p in self.params()])
         if not bool(norm < self.max_grad_norm):
-            for g in grads:
+            for g in (p.grad for p in self.params() if p.grad is not None):
                 g.copy_(g / norm.to(g.dtype) * self.max_grad_norm)
         return norm
 
@@ -101,13 +121,18 @@ class PhaseAdamW(torch.optim.AdamW):
         self.step()
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in f32 (optax's
-    ``global_norm``)."""
+def sum_of_squares(tensors) -> torch.Tensor:
+    """The sum of the squares of every element, in f32."""
     tensors = list(tensors)
     if not tensors:
         return torch.zeros(())
-    return torch.sqrt(sum(torch.sum(t.float() * t.float()) for t in tensors))
+    return sum(torch.sum(t.float() * t.float()) for t in tensors)
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, in f32 (optax's
+    ``global_norm``)."""
+    return torch.sqrt(sum_of_squares(tensors))
 
 
 def build_optimizer(

@@ -26,6 +26,17 @@ rows by that rank's own statistics, as under ``shard_map``, and the running
 statistics move by their mean; the model is not wrapped in
 ``DistributedDataParallel``, whose buffer broadcast would copy rank 0's.
 Without a process group the averaging is the identity.
+
+Tensor parallelism (``parallel.tp``) is JAX's global-jit step over a
+``(data, model)`` mesh: with ``mesh`` the model is sharded over the model
+group, its BatchNorms normalise the global batch (over the data group), the
+step averages over the data group only, and the optimizer's norm spans the
+model group. Each model peer computes the grads of the replicated
+parameters itself, and CUDA kernels that add with atomics (the backward of
+an advanced index, such as the CPB table's gather) leave the peers' bits
+apart; so the step first averages the replicated values (loss, their grads,
+logs, fresh statistics) over the model group, and the peers' replicated
+tensors stay bit-identical.
 """
 
 from __future__ import annotations
@@ -36,7 +47,7 @@ import torch
 from torch.func import functional_call
 
 from ..parallel.mesh import all_mean_
-from .optim import PhaseAdamW, global_norm
+from .optim import PhaseAdamW
 from .state import TrainState
 
 _STAT_SUFFIXES = (".running_mean", ".running_var")
@@ -44,7 +55,7 @@ _STAT_SUFFIXES = (".running_mean", ".running_var")
 
 def make_train_step(
     model: torch.nn.Module, optimizer: PhaseAdamW, phase: str,
-    compute_dtype: Optional[torch.dtype] = None,
+    compute_dtype: Optional[torch.dtype] = None, mesh=None,
 ) -> Callable[..., Tuple[TrainState, Dict]]:
     """``step(state, batch, generator, latent_generator) -> (state,
     metrics)`` for `phase`.
@@ -60,6 +71,8 @@ def make_train_step(
     trainable parameter's ``.grad`` holds its clipped grad: zeros where the
     loss does not reach it (the encoder-type spatial layers before the last),
     so that AdamW's decay still applies there, as under JAX's masked AdamW.
+    `mesh` (a ``parallel.Mesh``): the model and `optimizer` are sharded for
+    tensor parallelism, and the step averages over its data group.
     """
     if phase not in ("spatial", "temporal"):
         raise ValueError(f"phase must be 'spatial' or 'temporal', got {phase!r}")
@@ -69,6 +82,8 @@ def make_train_step(
     weights = dict(model.named_parameters())
     stat_names = [n for n, _ in model.named_buffers() if n.endswith(_STAT_SUFFIXES)
                   and id(weights[n.rsplit(".", 1)[0] + ".weight"]) in trained_ids]
+
+    group = None if mesh is None else mesh.data_group
 
     def cast(p):
         if compute_dtype is None or not p.is_floating_point():
@@ -115,7 +130,7 @@ def make_train_step(
                     model.get_buffer(n).copy_(v)
             state.step += 1
         else:
-            grad_norm = global_norm(part["grads"])
+            grad_norm = optimizer.grad_norm(part["grads"])
         metrics = {
             "loss": part["loss"],
             "grad_norm": grad_norm,
@@ -125,11 +140,18 @@ def make_train_step(
         }
         return state, metrics
 
+    def replicated(part: Dict) -> List[torch.Tensor]:
+        """The tensors of `part` that every model peer holds whole."""
+        grads = [g for g, s in zip(part["grads"], optimizer.sharded) if not s]
+        return [part["loss"], *grads, *_leaves(part["scalar_logs"]), *part["stats"].values()]
+
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None,
              latent_generator: Optional[torch.Generator] = None):
         part = local(batch, generator, latent_generator)
-        all_mean_(averaged(part))
+        if mesh is not None:
+            all_mean_(replicated(part), mesh.model_group)
+        all_mean_(averaged(part), group)
         return update(state, part)
 
     # the pieces, for a caller that averages the parts itself (a one-process

@@ -411,14 +411,19 @@ def test_unported_datasets_are_refused(env, name, tmp_path):
 
 @pytest.mark.parametrize("field,value", [("tp", 2), ("remat", True)])
 def test_unported_options_are_refused(env, field, value):
-    """Only tensor parallelism is still refused; ``remat``, refused until it
-    was ported, now reaches the backbone's config."""
+    """No option is refused any more: ``remat`` reaches the backbone's
+    config, and ``tp`` the eager attention path that tensor parallelism
+    shards (``tests/test_torch_tp.py`` runs it in worlds of two and four);
+    what is left of the refusal is the world ``tp`` needs: one process
+    cannot hold a ``tp=2`` mesh, and the error says so."""
     cfg = make_cfg(env, **{field: value})
     if field == "tp":
-        with pytest.raises(NotImplementedError, match="item 5c"):
+        assert build_model(cfg).config.attention_impl == "eager"
+        with pytest.raises(ValueError, match="tp=2 needs a world of n_data x 2 processes"):
             finetune.main(cfg, device="cpu")
+        with pytest.raises(ValueError, match="tp=2 needs a world"):
+            evaluate.main(cfg, device="cpu", h5_path=str(env["base"] / "tp.h5"))
     else:
-        finetune.check_ported_options(cfg)
         assert build_model(cfg).config.swin_config().remat is True
 
 

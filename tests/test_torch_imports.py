@@ -1,6 +1,6 @@
 """Import hygiene: the port and chip_smoke.py never import JAX or cs_vit_tpu,
 and importing them loads none of the file libraries (h5py, cv2,
-tensorboardX, safetensors) that the card's machine may lack: the functions
+tensorboardX, safetensors, matplotlib) that the card's machine may lack: the functions
 that read or write those formats import them. Nor does importing them build
 or load the C crop (``cs_vit_tpu_torch.native``): it is built at first use.
 Nor does importing them start a ``torch.distributed`` process group:
@@ -23,7 +23,7 @@ import importlib, pkgutil, sys
 {imports}
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "cs_vit_tpu", "h5py", "cv2",
-                                    "tensorboardX", "safetensors"))
+                                    "tensorboardX", "safetensors", "matplotlib"))
 assert not bad, bad
 import torch.distributed as dist
 assert not dist.is_initialized()
@@ -55,7 +55,10 @@ def test_every_port_module_imports_without_jax():
                  "data.ho3d_fs", "data.ih26m_seq", "data.ih26m_legacy",
                  "data.ih26m_legacy_aug", "data.mano_gt", "data.fixtures", "parallel.mesh",
                  "models.vit", "models.dinov2", "models.ti", "train.sparse_update",
-                 "data.pretrain", "cli.pretrain_ti"):
+                 "data.pretrain", "cli.pretrain_ti", "utils.misc", "utils.vis",
+                 "parallel.tp", "parallel.sync_norm", "tools.demo", "tools.analyze_eval_h5",
+                 "tools.scan_ih26m_annotations", "tools.dryrun_dexycb",
+                 "tools.dryrun_hybrid"):
         assert f"cs_vit_tpu_torch.{name}" in mods, name
 
 

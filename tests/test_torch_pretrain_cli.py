@@ -10,7 +10,8 @@
   only the stage's parameters moved. Its steps against JAX's, from the same
   weights and draws, are in ``tests/test_torch_ti.py`` (the two CLIs draw
   from different generators, so their checkpoints cannot match).
-* A world of more than one process is refused, naming the roadmap item.
+* A stray ``WORLD_SIZE`` is no world: the CLI runs alone (two ranks are
+  in ``tests/test_torch_pretrain_world.py``).
 """
 
 import os
@@ -150,10 +151,19 @@ def test_init_ti_weights_is_seeded():
     assert not torch.equal(a.backbone.embeddings.cls_token, b.backbone.embeddings.cls_token)
 
 
-def test_pretrain_refuses_a_larger_world(monkeypatch):
+def test_pretrain_refuses_a_larger_world(monkeypatch, tmp_path):
+    """A world of more than one process is no longer refused (two ranks are
+    held against JAX in ``tests/test_torch_pretrain_world.py``); what is
+    left of the refusal: a ``WORLD_SIZE`` without the rest of torchrun's
+    environment is no world to join, so the CLI runs alone, reading every
+    image, and starts no process group."""
+    for k in ("RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        pretrain_ti.cli(["--exp", "x", "--mode", "tivit", "--data_root", "x"] + SMALL)
+    monkeypatch.chdir(tmp_path)
+    root = fixtures.make_synthetic_image_folder(str(tmp_path / "imgs"), n=8)
+    run = pretrain_ti.cli(["--exp", "x", "--mode", "ti", "--data_root", root] + SMALL)
+    assert len(run["losses"]) == 2 and not torch.distributed.is_initialized()
 
 
 @pytest.mark.parametrize("name", ["finetune", "pretrain_ti"])
