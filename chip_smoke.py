@@ -11,9 +11,10 @@ order, failing (non-zero exit, no result line) at the first phase that fails:
 1. prints the card (``nvidia-smi`` name and power limit), turns TF32 off;
 2. builds the kernels (all four sources at once) and prints the build time
    and the compiler's register/spill report; fails if a tensor-core kernel
-   (the window-attention ``*_tc_kernel``s, forward and backward, and the
-   three ``wgmma`` GEMMs at each tile width) spills or is missing from the
-   report;
+   (the window-attention ``*_tc_kernel``s, forward and backward, the
+   three ``wgmma`` GEMMs at each tile width and the overlap probe in each
+   mode) spills or is missing from the report, or if ptxas reports any
+   library's ``wgmma`` instructions serialized;
 3. holds each forward and backward kernel of the whole-block path, the whole
    ``fused_swin_block``, the whole block backward (``FusedSwinBlock``) and
    the attention-only window kernel (``fused_window_attention``) against its
@@ -131,8 +132,10 @@ order, failing (non-zero exit, no result line) at the first phase that fails:
    TEMPORAL_STEPS bf16 steps whose loss must fall, every frozen parameter
    and statistic bit-identical afterwards, no saved backbone activations,
    the NaN skip;
-11. runs the tensor-core/SFU overlap probe's kernel against its plain version
-   in its three modes, then its entry point (``tools.probe_overlap``);
+11. runs the tensor-core/SFU overlap probe's kernel (``wgmma`` fed by TMA,
+   the exps between a ``wgmma``'s commit and its wait) against its plain
+   version in its three modes at a of 128, 512 and 1024 rows, then its entry
+   point (``tools.probe_overlap``: the three times and the overlap share);
 12. times every kernel at its path's shapes (batch 8) beside its plain
    version, one library call and its bound (CUDA events around calls as the
    host issues them, ``cuda_ms``), the two window-attention forward
@@ -361,9 +364,12 @@ FILE_LIBS = ("h5py", "cv2")
 DECAY_RTOL = 1e-5
 # probe kernel vs plain: bf16 acc to 2e-2 of its scale (eight products, each
 # rounded to bf16; a sum in another order flips a rounding by one ulp and
-# later products carry it), f32 vec to 1e-5 relative per element (__expf on
-# the SFU against exp; 32 passes of exp(v/4 - 1) contract errors)
+# later products carry it), f32 vec to 1e-5 relative per element (ex2.approx
+# on the SFU against exp; 32 passes of exp(v/4 - 1) contract errors)
 PROBE_TOL = {"acc": 2e-2, "vec": 1e-5}
+# rows of a the probe kernel is checked at: the TPU probe's 512, two row
+# blocks (128: fewer blocks than SMs) and twice the TPU's
+PROBE_ROWS = (128, 512, 1024)
 # queued_ms's sleep kernel ahead of the timed calls (about 20 ms at 1.98 GHz):
 # long enough for the host to enqueue them all
 SLEEP_CYCLES = 40_000_000
@@ -919,7 +925,11 @@ TC_KERNELS = {
                         for L in (256, 64, 16) for v in ("masked", "unmasked")}
                        | {("wgrad_wgmma_kernel", 0, "bf16")}
                        | {("dgrad_wgmma_kernel", 0, t) for t in GEMM_TILE_NAMES},
+    # the probe's three modes: its wgmma accumulators and exp chains in registers
+    "probe_overlap": {("probe_overlap_kernel", 0, m) for m in ("mma", "exp", "both")},
 }
+# ptxas's note that a kernel's wgmma instructions run one after another
+WGMMA_SERIAL_RE = re.compile(r"wgmma.*serializ|serializ.*wgmma", re.I)
 
 
 def ptxas_entries(log: str) -> dict:
@@ -943,9 +953,9 @@ def ptxas_entries(log: str) -> dict:
 
 def check_tc_spills(lib: str, log: str) -> None:
     """The tensor-core kernels (the window-attention ``*_tc_kernel``s, which
-    keep their score blocks in registers, and the three wgmma GEMMs, which
-    keep their accumulators there): fail on any spill, and unless the report
-    holds every instantiation of TC_KERNELS[lib]."""
+    keep their score blocks in registers, the three wgmma GEMMs and the
+    probe, which keep their accumulators there): fail on any spill, and
+    unless the report holds every instantiation of TC_KERNELS[lib]."""
     seen = set()
     for name, (regs, stores, loads) in ptxas_entries(log).items():
         m = re.search(r"\d((?:fused_)?window_attn(?:_bwd)?_tc_kernel)ILi(\d+)E"
@@ -960,6 +970,9 @@ def check_tc_spills(lib: str, log: str) -> None:
         elif m := re.search(r"\d((?:gemm_bias_act|dgrad)_wgmma_kernel)ILi(\d+)ELi(\d+)E", name):
             key = (m.group(1), 0, f"{m.group(2)}x{m.group(3)}")
             what = f"{m.group(1)}<{key[2]}>"
+        elif m := re.search(r"\dprobe_overlap_kernelILb([01])ELb([01])E", name):
+            mode = {"10": "mma", "01": "exp", "11": "both"}[m.group(1) + m.group(2)]
+            key, what = ("probe_overlap_kernel", 0, mode), f"probe_overlap_kernel<{mode}>"
         else:
             continue
         seen.add(key)
@@ -3708,25 +3721,27 @@ def time_window_attention(torch, wa, F, B=8, T=RT_T):
 
 def check_probe(torch, po):
     """Phase 9: the probe kernel against its plain version in its three modes
-    at the probe's own shapes; returns the worst max_abs."""
+    at the probe's own shapes (a of 512 rows) and at PROBE_ROWS's others;
+    returns the worst max_abs."""
     from cs_vit_tpu_torch.tools.probe_overlap import make_inputs
 
-    a, w, x = make_inputs(DEV)
     worst = 0.0
-    for mode in po.MODES:
-        acc, vec = po.probe_overlap(a, w, x, mode)
-        racc, rvec = po.probe_overlap_reference(a, w, x, mode)
-        sync(torch)
-        err_a, rel_a = rel_err(acc, racc)
-        err_v = (vec - rvec).abs().max().item()
-        rel_v = ((vec - rvec).abs() / rvec.abs().clamp_min(1e-30)).max().item()
-        ok = rel_a <= PROBE_TOL["acc"] and rel_v <= PROBE_TOL["vec"]
-        print(f"check probe {mode}: acc max_abs={err_a:.3e} rel={rel_a:.3e} "
-              f"tol={PROBE_TOL['acc']:.0e}; vec max_abs={err_v:.3e} max rel={rel_v:.3e} "
-              f"tol={PROBE_TOL['vec']:.0e} {'ok' if ok else 'FAIL'}")
-        if not ok:
-            fail(f"probe_overlap ({mode}) disagrees with its plain version")
-        worst = max(worst, err_a, err_v)
+    for rows in PROBE_ROWS:
+        a, w, x = make_inputs(DEV, rows=rows)
+        for mode in po.MODES:
+            acc, vec = po.probe_overlap(a, w, x, mode)
+            racc, rvec = po.probe_overlap_reference(a, w, x, mode)
+            sync(torch)
+            err_a, rel_a = rel_err(acc, racc)
+            err_v = (vec - rvec).abs().max().item()
+            rel_v = ((vec - rvec).abs() / rvec.abs().clamp_min(1e-30)).max().item()
+            ok = rel_a <= PROBE_TOL["acc"] and rel_v <= PROBE_TOL["vec"]
+            print(f"check probe {mode} M{rows}: acc max_abs={err_a:.3e} rel={rel_a:.3e} "
+                  f"tol={PROBE_TOL['acc']:.0e}; vec max_abs={err_v:.3e} max rel={rel_v:.3e} "
+                  f"tol={PROBE_TOL['vec']:.0e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"probe_overlap ({mode}, M {rows}) disagrees with its plain version")
+            worst = max(worst, err_a, err_v)
     return worst
 
 
@@ -3761,9 +3776,11 @@ def probe_bound(torch, po, repeats):
     exp = po.EXP_PASSES * V * 512 * repeats / (SFU_PER_CLOCK_PER_SM * sms * clock_hz) * 1e3
     nbytes = 3 * po.N * po.N * 2 + 2 * V * 512 * 4
     tb = nbytes / HBM_BYTES_PER_S * 1e3
+    plan = po.probe_plan(po.N)
     print(f"probe bound: products {mma:.4f} ms at {PEAK_FLOPS['bf16'] / 1e12:.0f} TFLOP/s, exp "
           f"{exp:.4f} ms at {SFU_PER_CLOCK_PER_SM} x {sms} SMs x {clock_hz / 1e6:.0f} MHz, bytes "
-          f"{tb:.4f} ms")
+          f"{tb:.4f} ms; w read from L2 {plan.w_l2_bytes * repeats / 2**30:.3f} GiB a call "
+          f"(not in the bound)")
     bound = max(mma, exp, tb)
     return bound, "bytes" if bound == tb else "operations"
 
@@ -3845,6 +3862,12 @@ def main() -> int:
                 if not log.exists():
                     fail(f"no ptxas report of {name} ({log.name}): its spills are unchecked")
                 check_tc_spills(name, log.read_text())
+            serial = [ln.strip() for ln in (log.read_text().splitlines() if log.exists() else ())
+                      if WGMMA_SERIAL_RE.search(ln)]
+            for line in serial:
+                print(f"ptxas {name}: {line}")
+            if serial:
+                fail(f"ptxas serialized wgmma instructions in {name}")
 
     with phase("check"):
         worst = check_kernels(torch, fb, wa)
@@ -3921,7 +3944,8 @@ def main() -> int:
         print(f"timed probe_overlap both: {probe_ms['both']:.4f} ms (entry point), plain "
               f"{plain:.4f} ms, bound {bound:.4f} ms ({bound_by}); mma {probe_ms['mma']:.4f} "
               f"ms, exp {probe_ms['exp']:.4f} ms, serial sum {probe_ms['serial']:.4f} ms, "
-              f"perfect overlap {probe_ms['overlap']:.4f} ms")
+              f"perfect overlap {probe_ms['overlap']:.4f} ms, overlap share "
+              f"{probe_ms['share']:.3f}")
         lat = serve_latency(torch, s1, s8, request)
         print(f"serve_b1_ms {lat['b1']:.3f} (min {lat['b1_min']:.3f})")
         print(f"serve_b8_ms {lat['b8']:.3f} (min {lat['b8_min']:.3f})")

@@ -2,8 +2,8 @@
 // wgmma descriptors and the m64nNk16 bf16 products (N = 64, 128) with f32
 // accumulators, A from shared memory or from registers. The three bf16
 // GEMMs of the block kernels are built from them: gemm_wgrad and gemm_dgrad
-// (fused_block_bwd.cu), gemm_bias_act (fused_block.cu); none of their
-// arithmetic is here.
+// (fused_block_bwd.cu), gemm_bias_act (fused_block.cu), and the overlap
+// probe's product chain (probe_overlap.cu); none of their arithmetic is here.
 //
 // Shared-memory operand tiles come in two 128-byte-swizzle layouts, both
 // written as they are by a TMA load with CU_TENSOR_MAP_SWIZZLE_128B of a

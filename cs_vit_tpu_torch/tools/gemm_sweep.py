@@ -32,7 +32,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import re
 import sys
 import time
 
@@ -131,7 +130,7 @@ def main() -> None:
         log = path.with_name(path.name + ".log").read_text()
         cs.check_tc_spills(name, log)
         for line in log.splitlines():
-            if re.search(r"wgmma.*serializ|serializ.*wgmma", line, re.I):
+            if cs.WGMMA_SERIAL_RE.search(line):
                 print(f"ptxas {name}: {line.strip()}", flush=True)
 
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -5,7 +5,8 @@ Port of ``tools/probe_overlap.py``. Three runs of one kernel
 chain of exp passes only, (c) both interleaved with NO data dependence
 between them. If (c) ~= max(a, b) the units overlap, and a kernel may
 interleave its softmax (SFU) with its GEMMs (tensor cores); if (c) ~= a + b
-the work is serial.
+the work is serial. The overlap share, (a + b - c) / min(a, b), reads 1
+for the first and 0 for the second.
 
     python -m cs_vit_tpu_torch.tools.probe_overlap
 
@@ -16,6 +17,7 @@ the host clock.
 
 from __future__ import annotations
 
+import subprocess
 import time
 from typing import Dict
 
@@ -30,13 +32,13 @@ REPEATS = 64  # the TPU probe's grid
 ITERS = 20    # timed calls per mode (the TPU tool's iters)
 
 
-def make_inputs(device, seed: int = 0):
-    """a, w [512, 512] bf16 (N(0, 0.05^2)) and x [2048, 512] f32 (N(0, 1)),
-    drawn in the TPU tool's order."""
+def make_inputs(device, seed: int = 0, rows: int = N):
+    """a [rows, 512], w [512, 512] bf16 (N(0, 0.05^2)) and x [4 rows, 512]
+    f32 (N(0, 1)), drawn in the TPU tool's order (its shapes at rows 512)."""
     rng = np.random.default_rng(seed)
-    a = torch.from_numpy(rng.normal(size=(N, N)) * 0.05).to(device, torch.bfloat16)
+    a = torch.from_numpy(rng.normal(size=(rows, N)) * 0.05).to(device, torch.bfloat16)
     w = torch.from_numpy(rng.normal(size=(N, N)) * 0.05).to(device, torch.bfloat16)
-    x = torch.from_numpy(rng.normal(size=(V, 512))).to(device, torch.float32)
+    x = torch.from_numpy(rng.normal(size=(V * rows // N, 512))).to(device, torch.float32)
     return a, w, x
 
 
@@ -62,21 +64,32 @@ def time_mode(mode: str, a, w, x, iters: int = ITERS, repeats: int = REPEATS) ->
 
 
 def run(device="cuda", iters: int = ITERS, repeats: int = REPEATS) -> Dict[str, float]:
-    """ms of each mode, with the serial sum and the perfect overlap."""
+    """ms of each mode, with the serial sum, the perfect overlap and the
+    overlap share (mma + exp - both) / min(mma, exp)."""
     a, w, x = make_inputs(resolve_device(device))
     ms = {mode: time_mode(mode, a, w, x, iters, repeats) for mode in MODES}
     ms["serial"] = ms["mma"] + ms["exp"]
     ms["overlap"] = max(ms["mma"], ms["exp"])
+    ms["share"] = (ms["serial"] - ms["both"]) / min(ms["mma"], ms["exp"])
     return ms
+
+
+def card_line() -> str:
+    """The card's name and power limit as nvidia-smi prints them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
 
 
 def main() -> Dict[str, float]:
     ms = run()
     print(f"device   : {torch.cuda.get_device_name()}")
-    print(f"mma only : {ms['mma']:7.3f} ms")
-    print(f"exp only : {ms['exp']:7.3f} ms")
-    print(f"both     : {ms['both']:7.3f} ms   (serial sum {ms['serial']:.3f}, "
-          f"perfect overlap {ms['overlap']:.3f})")
+    print(f"card     : {card_line()}")
+    print(f"mma only : {ms['mma']:7.4f} ms")
+    print(f"exp only : {ms['exp']:7.4f} ms")
+    print(f"both     : {ms['both']:7.4f} ms   (serial sum {ms['serial']:.4f}, "
+          f"perfect overlap {ms['overlap']:.4f})")
+    print(f"overlap share: {ms['share']:.3f} (1: the units overlap; 0: the work is serial)")
     return ms
 
 

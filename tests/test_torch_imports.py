@@ -58,10 +58,28 @@ def test_every_port_module_imports_without_jax():
                  "data.pretrain", "cli.pretrain_ti", "utils.misc", "utils.vis",
                  "parallel.tp", "parallel.sync_norm", "tools.demo", "tools.analyze_eval_h5",
                  "tools.scan_ih26m_annotations", "tools.dryrun_dexycb",
-                 "tools.dryrun_hybrid"):
+                 "tools.dryrun_hybrid", "tools.probe_overlap", "ops.probe_overlap"):
         assert f"cs_vit_tpu_torch.{name}" in mods, name
 
 
 @pytest.mark.parametrize("module", ["chip_smoke"])
 def test_root_scripts_import_without_jax(module):
     _run(_CHECK.format(imports=f"import {module}\nimport cs_vit_tpu_torch.serving", count=1))
+
+
+@pytest.mark.parametrize("entry", [
+    "cli.finetune:main", "cli.evaluate:main", "cli.pretrain_ti:main", "serving:PoserSession",
+    "tools.probe_overlap:run", "cli.finetune:build_argparser", "cli.pretrain_ti:build_argparser",
+    "tools.demo:build_argparser",
+])
+def test_entry_points_default_to_the_card(entry):
+    """Every entry point runs on the card unless the caller asks for the CPU."""
+    import importlib
+    import inspect
+
+    mod, name = entry.split(":")
+    fn = getattr(importlib.import_module(f"cs_vit_tpu_torch.{mod}"), name)
+    if name == "build_argparser":
+        assert fn().get_default("device") == "cuda"
+    else:
+        assert inspect.signature(fn).parameters["device"].default == "cuda"

@@ -348,7 +348,7 @@ def test_probe_kernel_matches_plain_version():
     _need_card()
     po.reset_launch_counts()
     chip_smoke.check_probe(torch, po)
-    assert po.launch_counts() == {"probe_overlap": 3}
+    assert po.launch_counts() == {"probe_overlap": len(po.MODES) * len(chip_smoke.PROBE_ROWS)}
 
 
 @pytest.mark.gpu

@@ -66,6 +66,8 @@ def test_tool_runs_on_the_cpu():
     """The tool's timing loop on CPU tensors times the plain version of each
     mode."""
     ms = tool.run("cpu", iters=1, repeats=1)
-    assert set(ms) == {"mma", "exp", "both", "serial", "overlap"}
-    assert all(np.isfinite(v) and v > 0 for v in ms.values())
+    assert set(ms) == {"mma", "exp", "both", "serial", "overlap", "share"}
+    assert all(np.isfinite(v) and v > 0 for k, v in ms.items() if k != "share")
     assert ms["serial"] == ms["mma"] + ms["exp"] and ms["overlap"] == max(ms["mma"], ms["exp"])
+    assert np.isfinite(ms["share"])
+    assert ms["share"] == (ms["serial"] - ms["both"]) / min(ms["mma"], ms["exp"])
