@@ -38,6 +38,7 @@ from ..serving import INIT_SEED, load_checkpoint_state_dict
 from ..train import make_eval_step, merge_params
 from ..utils.dist import process_index
 from ..utils.logging import nop, wrap_prefix_print
+from ..utils.profiling import annotate
 from .common import (
     batch_to_device,
     build_datasets,
@@ -126,7 +127,8 @@ def main(cfg: FinetuneConfig, ckpt_root: str = "./checkpoints", h5_path: str | N
     host_batches = iter(loader)
     while True:
         t0 = time.perf_counter()
-        host_batch = next(host_batches, None)
+        with annotate("csvit.data.wait"):
+            host_batch = next(host_batches, None)
         loader_wait += time.perf_counter() - t0
         if host_batch is None:
             break

@@ -60,7 +60,7 @@ from ..train import (
 )
 from ..utils.dist import process_count, process_index
 from ..utils.logging import TBLogger, nop, print_grouped_losses, wrap_prefix_print
-from ..utils.profiling import StepTimer
+from ..utils.profiling import StepTimer, annotate
 from .common import (
     build_datasets,
     build_loader,
@@ -159,9 +159,13 @@ def main(cfg: FinetuneConfig, ckpt_root: str = "./checkpoints", log_every: int =
         t_log = time.monotonic()
         meter = StepTimer(warmup=2)
         loader_wait, t_ready = 0.0, time.perf_counter()
-        for it, batch in enumerate(
-            device_prefetch(loader, device, patches_dtype=compute_dtype)
-        ):
+        batches = enumerate(device_prefetch(loader, device, patches_dtype=compute_dtype))
+        while True:
+            with annotate("csvit.data.wait"):
+                item = next(batches, None)
+            if item is None:
+                break
+            it, batch = item
             loader_wait += time.perf_counter() - t_ready
             state, metrics = train_step(state, batch, generator, latent_generator)
             meter.update(cfg.batch_size)

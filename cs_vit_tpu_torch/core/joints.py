@@ -8,6 +8,8 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import annotate
+
 
 @lru_cache(maxsize=None)
 def reorder_indices(origin: Tuple[str, ...], target: Tuple[str, ...]) -> np.ndarray:
@@ -32,7 +34,11 @@ def reorder_joints(
 def mean_connection_length(
     joints: torch.Tensor, connection: Sequence[Tuple[int, int]]
 ) -> torch.Tensor:
-    """Mean bone length over `connection` pairs; joints [..., J, 3] -> [...]."""
-    src = joints[..., [a for a, _ in connection], :]
-    dst = joints[..., [b for _, b in connection], :]
+    """Mean bone length over `connection` pairs; joints [..., J, 3] -> [...].
+    On a card each list index is copied there from pageable memory, and the
+    host waits for the copy."""
+    with annotate("csvit.sync.bone_src"):
+        src = joints[..., [a for a, _ in connection], :]
+    with annotate("csvit.sync.bone_dst"):
+        dst = joints[..., [b for _, b in connection], :]
     return torch.mean(torch.linalg.vector_norm(src - dst, dim=-1), dim=-1)

@@ -22,6 +22,7 @@ from ..constants import (
     TARGET_JOINTS_ORDER,
 )
 from ..core.geometry import axis_angle_to_matrix
+from ..utils.profiling import annotate
 from .assets import ManoAssets
 
 
@@ -90,11 +91,14 @@ class ManoLayer(nn.Module):
         pose_offsets = (pose_feature @ self.posedirs).reshape(B, -1, 3)
         v_posed = v_shaped + pose_offsets
 
-        # forward-kinematic chain, one joint at a time
-        rel_joints = torch.cat(
-            [joints[:, :1], joints[:, 1:] - joints[:, self.parents[1:]]], dim=1
-        )
-        bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=f32, device=betas.device)
+        # forward-kinematic chain, one joint at a time; the list index and the
+        # constant row are copied to the card from pageable memory, and the
+        # host waits for each copy
+        with annotate("csvit.sync.mano_parents"):
+            parent_joints = joints[:, self.parents[1:]]
+        rel_joints = torch.cat([joints[:, :1], joints[:, 1:] - parent_joints], dim=1)
+        with annotate("csvit.sync.mano_bottom"):
+            bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=f32, device=betas.device)
         transforms_mat = torch.cat(
             [
                 torch.cat([rot_mats, rel_joints[..., None]], dim=-1),

@@ -23,7 +23,7 @@ through the host square crop (the C crop) into ``predict_crops``.
 from __future__ import annotations
 
 import os.path as osp
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +34,7 @@ from .models import init_poser_weights
 from .ops.resample import crop_with_square_box_np
 from .train.checkpoint import latest_checkpoint
 from .train.convert import load_reference_state_dict
+from .utils.profiling import annotate
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # weights without a checkpoint are random from this seed (the JAX session
@@ -111,8 +112,15 @@ class PoserSession:
             np.full((B, T, 2), S / 2.0, np.float32),
         )
 
+    def _upload(self, patches, bboxes, ts, focal, princpt) -> Tuple[torch.Tensor, ...]:
+        """The five inputs on the session's device, the images in its dtype."""
+        def dev(x, dtype=torch.float32):
+            return torch.as_tensor(np.asarray(x, np.float32)).to(self.device, dtype)
+
+        return dev(patches, self._dtype), dev(bboxes), dev(ts), dev(focal), dev(princpt)
+
     @torch.no_grad()
-    def _run(self, patches, bboxes, ts, focal, princpt) -> Dict[str, torch.Tensor]:
+    def _forward(self, *inputs: torch.Tensor) -> Dict[str, torch.Tensor]:
         if self.model.latent_trans is not None:
             # the JAX session's jitted predict passes no "latent" rng either,
             # and flax raises there
@@ -121,12 +129,10 @@ class PoserSession:
                 f"num_latent_layer={self.cfg.num_latent_layer} cannot be served: set "
                 "num_latent_layer=None, as evaluation does (cs_vit_tpu/cli/evaluate.py:56); "
                 "the checkpoint's latent_trans.* keys are then dropped on load")
-        def dev(x, dtype=torch.float32):
-            return torch.as_tensor(np.asarray(x, np.float32)).to(self.device, dtype)
+        return self.model.predict(*inputs)
 
-        return self.model.predict(
-            dev(patches, self._dtype), dev(bboxes), dev(ts), dev(focal), dev(princpt)
-        )
+    def _run(self, patches, bboxes, ts, focal, princpt) -> Dict[str, torch.Tensor]:
+        return self._forward(*self._upload(patches, bboxes, ts, focal, princpt))
 
     def predict_crops(
         self,
@@ -136,7 +142,11 @@ class PoserSession:
         focal: np.ndarray,          # [N, T, 2]
         princpt: np.ndarray,        # [N, T, 2]
     ) -> Dict[str, np.ndarray]:
-        """Batched inference, each chunk padded to the session's batch size."""
+        """Batched inference, each chunk padded to the session's batch size.
+        Under a profiler each chunk opens ``csvit.serve.input`` (padding,
+        copies to the card), ``csvit.serve.forward`` and
+        ``csvit.serve.output`` (copies to the host, which wait for the
+        forward)."""
         N = patches.shape[0]
         B = self.batch_size
         outs = []
@@ -150,11 +160,15 @@ class PoserSession:
                     chunk = np.concatenate([chunk, np.repeat(chunk[-1:], pad, axis=0)], axis=0)
                 return chunk
 
-            result = self._run(
-                padded(patches), padded(square_bboxes), padded(timestamps),
-                padded(focal), padded(princpt),
-            )
-            outs.append({k: v[: e - s].float().cpu().numpy() for k, v in result.items()})
+            with annotate("csvit.serve.input"):
+                inputs = self._upload(
+                    padded(patches), padded(square_bboxes), padded(timestamps),
+                    padded(focal), padded(princpt),
+                )
+            with annotate("csvit.serve.forward"):
+                result = self._forward(*inputs)
+            with annotate("csvit.serve.output"):
+                outs.append({k: v[: e - s].float().cpu().numpy() for k, v in result.items()})
         return {k: np.concatenate([o[k] for o in outs], axis=0) for k in outs[0]}
 
     def predict_images(

@@ -20,6 +20,7 @@ from typing import Callable, Iterable, List, Optional, Union
 import torch
 
 from ..models.poser import Poser, phase_trainable_params
+from ..utils.profiling import annotate
 
 Schedule = Callable[[int], float]
 
@@ -106,9 +107,12 @@ class PhaseAdamW(torch.optim.AdamW):
     def clip_grads_(self) -> torch.Tensor:
         """Clip the parameters' grads in place by their global norm, optax's
         way; returns the pre-clip norm (f32). A parameter without a grad counts
-        as zeros."""
+        as zeros. Reading the norm's comparison waits for the card (the
+        ``csvit.sync.clip`` span)."""
         norm = self.grad_norm([p.grad for p in self.params()])
-        if not bool(norm < self.max_grad_norm):
+        with annotate("csvit.sync.clip"):
+            below = bool(norm < self.max_grad_norm)
+        if not below:
             for g in (p.grad for p in self.params() if p.grad is not None):
                 g.copy_(g / norm.to(g.dtype) * self.max_grad_norm)
         return norm

@@ -37,6 +37,13 @@ an advanced index, such as the CPB table's gather) leave the peers' bits
 apart; so the step first averages the replicated values (loss, their grads,
 logs, fresh statistics) over the model group, and the peers' replicated
 tensors stay bit-identical.
+
+Under a profiler (``utils.trace``) each step is a ``csvit.step`` span with
+``csvit.step.cast``, ``.forward``, ``.backward`` and ``.update`` inside it,
+and ``.clip`` and ``.optim`` inside the update; each host sync of the step
+is a ``csvit.sync.<site>`` span (``utils/profiling.py`` lists them).
+``step.local`` and ``step.update`` carry the same spans when called on
+their own. Without a profiler a span costs one flag's read.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ import torch
 from torch.func import functional_call
 
 from ..parallel.mesh import all_mean_
+from ..utils.profiling import annotate
 from .optim import PhaseAdamW
 from .state import TrainState
 
@@ -98,15 +106,18 @@ def make_train_step(
         """This rank's part of the step: the loss, the grads of the trainable
         parameters (zeros where the loss does not reach them), the scalar
         logs, the fresh BatchNorm statistics and the predicted joints."""
-        params = {n: cast(p) for n, p in model.named_parameters()}
-        if compute_dtype is not None:
-            batch = {**batch, "patches": batch["patches"].to(compute_dtype)}
-        stats = {n: model.get_buffer(n).clone() for n in stat_names}
-        out = functional_call(model, {**params, **stats},
-                              (batch, phase, generator, latent_generator))
-        loss = out["loss"].float()
-        grads = torch.autograd.grad(loss, trainable, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(trainable, grads)]
+        with annotate("csvit.step.cast"):
+            params = {n: cast(p) for n, p in model.named_parameters()}
+            if compute_dtype is not None:
+                batch = {**batch, "patches": batch["patches"].to(compute_dtype)}
+        with annotate("csvit.step.forward"):
+            stats = {n: model.get_buffer(n).clone() for n in stat_names}
+            out = functional_call(model, {**params, **stats},
+                                  (batch, phase, generator, latent_generator))
+            loss = out["loss"].float()
+        with annotate("csvit.step.backward"):
+            grads = torch.autograd.grad(loss, trainable, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g for p, g in zip(trainable, grads)]
         return {"loss": loss.detach().clone(), "grads": grads,
                 "scalar_logs": _detach(out["logs"]["scalar"]), "stats": stats,
                 "joint_cam_pred": out["predict"]["joint_cam"].detach().float()}
@@ -119,25 +130,29 @@ def make_train_step(
     def update(state: TrainState, part: Dict) -> Tuple[TrainState, Dict]:
         """The rest of the step, from a (world-averaged) part: the finite
         check, the clip and AdamW, the statistics written back."""
-        finite = bool(torch.isfinite(part["loss"]))
-        if finite:
-            for p, g in zip(trainable, part["grads"]):
-                p.grad = g
-            grad_norm = optimizer.clip_grads_()
-            optimizer.scheduled_step()
-            with torch.no_grad():
-                for n, v in part["stats"].items():
-                    model.get_buffer(n).copy_(v)
-            state.step += 1
-        else:
-            grad_norm = optimizer.grad_norm(part["grads"])
-        metrics = {
-            "loss": part["loss"],
-            "grad_norm": grad_norm,
-            "skipped": torch.tensor(0.0 if finite else 1.0),
-            "scalar_logs": part["scalar_logs"],
-            "joint_cam_pred": part["joint_cam_pred"],
-        }
+        with annotate("csvit.step.update"):
+            with annotate("csvit.sync.finite"):
+                finite = bool(torch.isfinite(part["loss"]))
+            if finite:
+                for p, g in zip(trainable, part["grads"]):
+                    p.grad = g
+                with annotate("csvit.step.clip"):
+                    grad_norm = optimizer.clip_grads_()
+                with annotate("csvit.step.optim"):
+                    optimizer.scheduled_step()
+                with torch.no_grad():
+                    for n, v in part["stats"].items():
+                        model.get_buffer(n).copy_(v)
+                state.step += 1
+            else:
+                grad_norm = optimizer.grad_norm(part["grads"])
+            metrics = {
+                "loss": part["loss"],
+                "grad_norm": grad_norm,
+                "skipped": torch.tensor(0.0 if finite else 1.0),
+                "scalar_logs": part["scalar_logs"],
+                "joint_cam_pred": part["joint_cam_pred"],
+            }
         return state, metrics
 
     def replicated(part: Dict) -> List[torch.Tensor]:
@@ -148,11 +163,12 @@ def make_train_step(
     def step(state: TrainState, batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None,
              latent_generator: Optional[torch.Generator] = None):
-        part = local(batch, generator, latent_generator)
-        if mesh is not None:
-            all_mean_(replicated(part), mesh.model_group)
-        all_mean_(averaged(part), group)
-        return update(state, part)
+        with annotate("csvit.step"):
+            part = local(batch, generator, latent_generator)
+            if mesh is not None:
+                all_mean_(replicated(part), mesh.model_group)
+            all_mean_(averaged(part), group)
+            return update(state, part)
 
     # the pieces, for a caller that averages the parts itself (a one-process
     # emulation of a world)

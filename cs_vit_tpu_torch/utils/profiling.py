@@ -6,6 +6,35 @@ The reference only timed iterations with datetime deltas
 :func:`annotate` names a span in it. The meter reads the host clock, so a
 step that ends without waiting for the card is timed as it was issued: the
 port's train step waits for its loss's finiteness on every step.
+
+The program's own spans, all opened through :func:`annotate` and recorded
+only while a profiler records on the calling thread (under :func:`trace`,
+or any ``torch.profiler.profile``):
+
+* ``csvit.step`` (``train/step.py``), one train step, with
+  ``csvit.step.cast`` (the parameters' and images' compute-dtype copies),
+  ``csvit.step.forward``, ``csvit.step.backward`` and ``csvit.step.update``;
+  under the last ``csvit.step.clip`` and ``csvit.step.optim`` (AdamW);
+* ``csvit.sync.<site>``, each place where a train step makes the host wait
+  for the card, one sync a span: ``finite`` (the loss's finiteness,
+  ``train/step.py``), ``clip`` (the clip's branch, ``train/optim.py``),
+  ``mano_parents`` and ``mano_bottom`` (a list index and a constant row
+  copied to the card from pageable memory, ``mano/layer.py``), ``bone_src``
+  and ``bone_dst`` (the bones' list indices, ``core/joints.py``); the last
+  four run in every forward, served ones too;
+* ``csvit.serve.input`` (padding and the copies to the card),
+  ``csvit.serve.forward`` and ``csvit.serve.output`` (the copies to the
+  host, which wait for the forward), one each for every chunk of
+  ``PoserSession.predict_crops`` (``serving.py``);
+* ``csvit.data.wait`` (``cli/finetune.py``, ``cli/evaluate.py``), the wait
+  for the loader's next batch.
+
+The profiler writes each span on the timeline of the kernels and copies it
+launches, so the card's idle time can be put down to the span that was
+open on the host. On the H100 the device's clock can drift from the host's
+by milliseconds over a capture of a second or two; the benchmark's readers
+(``portbench/spans.py``) put the device's events back on the host's clock
+from their launches.
 """
 
 from __future__ import annotations
@@ -40,8 +69,16 @@ def trace(log_dir: str) -> Iterator[torch.profiler.profile]:
         prof.export_chrome_trace(prof.trace_path)
 
 
+_NO_SPAN = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """Named trace span for host-side phases."""
+    """A named span of the host, as a context manager: a
+    ``torch.profiler.record_function`` range while a profiler records on
+    this thread, else one shared null context, which costs a flag's read and
+    enters no ``RecordFunction``."""
+    if not torch._C._autograd._profiler_enabled():
+        return _NO_SPAN
     return torch.profiler.record_function(name)
 
 
