@@ -44,7 +44,12 @@ order, failing (non-zero exit, no result line) at the first phase that fails:
    against the eager path under a backbone-only loss, and the bf16 step's
    loss and grad norm against the eager path's, held to a measured floor;
    TRAIN_STEPS bf16 steps on one batch whose loss must fall, with the
-   launch counts of one step and the step time; a NaN batch that must leave
+   launch counts of one step (the update's multi-tensor wrappers among
+   them, UPDATE_EXPECT) and the step time; the update's kernels
+   (``ops.multi_tensor``: ``squares``, ``clip_``, ``adamw_``) at the trained
+   leaves and their grads as the backward left them, each against its plain
+   version, then timed beside them, the library's per-leaf update and the
+   bound of their bytes (``check_update``); a NaN batch that must leave
    the state bit-identical; a profiled step (device idle share; the
    LayerNorm kernels' and ``sum_splits``' launches and device ms, and
    ``FusedSwinBlockBackward``'s device ms);
@@ -248,6 +253,17 @@ WA_SOURCE = "cs_vit_tpu_torch/ops/csrc/window_attention.cu"
 WA_REPLACES = "cs_vit_tpu/ops/window_attention.py:31"
 PROBE_SOURCE = "cs_vit_tpu_torch/ops/csrc/probe_overlap.cu"
 PROBE_REPLACES = "tools/probe_overlap.py:51"
+# the train step's update (ops.multi_tensor): the wrappers' calls in one step
+# (squares launches two kernels, clip_ and adamw_ one each), and each against
+# its plain version at the flagship's leaves within UPDATE_ULPS f32 ulps of
+# each leaf's largest element (the f64 sums' order; fma contraction in AdamW)
+UPDATE_SOURCE = "cs_vit_tpu_torch/ops/csrc/multi_tensor_adamw.cu"
+UPDATE_REPLACES = "none: cs_vit_tpu/train/step.py runs optax's clip and AdamW inside its graph"
+UPDATE_EXPECT = {"squares": 1, "clip_": 1, "adamw_": 1}
+UPDATE_ULPS = 8
+# bytes an element of a trained leaf moves through the update: the norm reads
+# g, the clip reads and writes it, AdamW reads p, g, m, v and writes p, m, v
+UPDATE_BYTES_PER_ELEMENT = 4 * (1 + 2 + 7)
 # the temporal cases of __graft_entry__.py: realtime over T=3 frames (served
 # and trained), full over T=5 (trained)
 RT_T, FULL_T = 3, 5
@@ -1567,6 +1583,129 @@ def check_train(torch, fb, model, B=8):
     check_step(torch, model, B)
 
 
+def check_update(torch, mt, state):
+    """The train step's update kernels (``ops.multi_tensor``) at a trained
+    flagship state's leaves: its grads as the backward left them (the block
+    kernels' weight grads stored transposed, the conv's channels-last),
+    tripled so that the clip scales. ``squares``, ``clip_`` and ``adamw_``
+    each against its plain version (``*_reference``) on the card within
+    UPDATE_ULPS f32 ulps of each leaf's largest element; then the three as
+    the step issues them, timed with CUDA events beside their plain
+    versions, the library's per-leaf update (the parent's clip: the f32 norm
+    per leaf, the host's branch, the scaling per leaf; ``torch.optim.AdamW``'s
+    foreach step) and the bound of the bytes they move. Every timed call's
+    clip scales: its limit halves each call. Returns the kernels line's
+    row."""
+    from cs_vit_tpu_torch.train.optim import global_norm
+
+    opt = state.optimizer
+    group = opt.param_groups[0]
+    params = [p for p in opt.params() if p.grad is not None]
+    kw = dict(lr=group["lr"], beta1=group["betas"][0], beta2=group["betas"][1],
+              eps=group["eps"], weight_decay=group["weight_decay"], step=opt.updates_taken() + 1)
+    ulp = torch.finfo(torch.float32).eps
+
+    def copies(ts):
+        return [t.detach().clone() for t in ts]  # a clone keeps a dense layout
+
+    def for_adamw(gs):  # as PhaseAdamW hands them to adamw_
+        return [g if g.is_contiguous() or mt.transposed(g) else g.contiguous() for g in gs]
+
+    worst = 0.0
+
+    def held(what, got, want):
+        nonlocal worst
+        for i, (a, b) in enumerate(zip(got, want)):
+            if not b.numel():
+                continue
+            top = float(b.abs().max())
+            gap = float((a - b).abs().max())
+            worst = max(worst, gap)
+            if not gap <= UPDATE_ULPS * ulp * top:
+                fail(f"update: {what} of leaf {i} {tuple(b.shape)} off its plain version by "
+                     f"{gap:.3e} (> {UPDATE_ULPS} ulps of {top:.3e})")
+
+    grads = [g.mul_(3.0) for g in copies([p.grad for p in params])]
+    layouts = {"contiguous": sum(g.is_contiguous() for g in grads),
+               "transposed": sum(mt.transposed(g) for g in grads)}
+    layouts["other dense"] = len(grads) - layouts["contiguous"] - layouts["transposed"]
+    mt.reset_launch_counts()
+    sq = mt.squares(grads, [])
+    held("squares", sq.unbind(), mt.squares_reference(grads, []).unbind())
+    norm = sq[2]
+    kernel_g, plain_g = copies(grads), copies(grads)
+    mt.clip_(kernel_g, norm, opt.max_grad_norm)
+    mt.clip_reference_(plain_g, norm, opt.max_grad_norm)
+    held("clip_", kernel_g, plain_g)
+    moments = [[opt.state[p][k] for p in params] for k in ("exp_avg", "exp_avg_sq")]
+    kernel = [copies(params), *map(copies, moments)]
+    plain = [copies(params), *map(copies, moments)]
+    mt.adamw_(kernel[0], for_adamw(kernel_g), kernel[1], kernel[2], **kw)
+    mt.adamw_reference_(plain[0], kernel_g, plain[1], plain[2], **kw)
+    for what, got, want in zip(("adamw_ p", "adamw_ exp_avg", "adamw_ exp_avg_sq"), kernel, plain):
+        held(what, got, want)
+    sync(torch)
+    counts = mt.launch_counts()
+    if DEV == "cuda" and counts != {"squares": 1, "clip_": 1, "adamw_": 1}:
+        fail(f"update: the wrappers launched {counts}")
+    elements = sum(p.numel() for p in params)
+    print(f"update: {len(params)} leaves, {elements / 1e6:.2f} M elements, grads {layouts}, "
+          f"norm {float(norm):.4f} (clip at {opt.max_grad_norm}); squares, clip_ and adamw_ "
+          f"against their plain versions: worst |diff| {worst:.3e} (tol {UPDATE_ULPS} ulps of "
+          f"each leaf's largest element)")
+
+    def halving():
+        """Each call's clip limit: half the last, which the norm now is."""
+        limit = [opt.max_grad_norm]
+
+        def next_limit():
+            limit[0] *= 0.5
+            return limit[0]
+        return next_limit
+
+    kernel_limit, plain_limit, library_limit = halving(), halving(), halving()
+
+    def kernels():
+        sq = mt.squares(kernel_g, [])
+        mt.clip_(kernel_g, sq[2], kernel_limit())
+        mt.adamw_(kernel[0], for_adamw(kernel_g), kernel[1], kernel[2], **kw)
+
+    def plains():
+        sq = mt.squares_reference(plain_g, [])
+        mt.clip_reference_(plain_g, sq[2], plain_limit())
+        mt.adamw_reference_(plain[0], plain_g, plain[1], plain[2], **kw)
+
+    lib_params = [torch.nn.Parameter(p) for p in copies(params)]
+    library = torch.optim.AdamW(lib_params, foreach=True, lr=kw["lr"],
+                                betas=(kw["beta1"], kw["beta2"]), eps=kw["eps"],
+                                weight_decay=kw["weight_decay"])
+    for p, g, m, v in zip(lib_params, copies(grads), *map(copies, moments)):
+        p.grad = g
+        library.state[p] = {"step": torch.tensor(float(kw["step"] - 1)), "exp_avg": m,
+                            "exp_avg_sq": v}
+
+    def per_leaf():
+        gs = [p.grad for p in lib_params]
+        n = global_norm(gs)
+        limit = library_limit()
+        if not bool(n < limit):
+            for g in gs:
+                g.copy_(g / n * limit)
+        library.step()
+
+    ms = cuda_ms(torch, kernels)
+    plain_ms = cuda_ms(torch, plains, iters=3, warmup=1)
+    library_ms = cuda_ms(torch, per_leaf, iters=5, warmup=2)
+    bound_ms = elements * UPDATE_BYTES_PER_ELEMENT / HBM_BYTES_PER_S * 1e3
+    print(f"update: the three kernels {ms:.3f} ms a step, plain {plain_ms:.3f} ms, library "
+          f"(per-leaf clip + foreach AdamW) {library_ms:.3f} ms, bound {bound_ms:.4f} ms "
+          f"({elements * UPDATE_BYTES_PER_ELEMENT / 1e9:.3f} GB)")
+    return {"name": "multi_tensor_update", "route": "cuda", "source": UPDATE_SOURCE,
+            "replaces": UPDATE_REPLACES, "launches": 2 * counts["squares"] + counts["clip_"]
+            + counts["adamw_"], "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms}
+
+
 def latent_generator(torch, seed):
     """The latent group's generator, on the card (None off a latent path)."""
     return torch.Generator(device=DEV).manual_seed(seed)
@@ -1694,6 +1833,7 @@ def spenc(torch, fb):
     from cs_vit_tpu_torch.cli.common import build_model
     from cs_vit_tpu_torch.config import FinetuneConfig
     from cs_vit_tpu_torch.models import init_poser_weights
+    from cs_vit_tpu_torch.ops import multi_tensor as mt
     from cs_vit_tpu_torch.serving import PoserSession
 
     layout = dict(SPENC_CONFIG, backbone=BACKBONE, img_size=IMG)
@@ -1713,11 +1853,11 @@ def spenc(torch, fb):
     state, step = new_step(torch, model, torch.bfloat16)
     print(f"spenc: AdamW lr {TRAIN_LR} (constant), {SPENC_STEPS} bf16 steps on one batch of 8, "
           f"the latent group doubling the rows after the backbone")
-    times, counts, _ = train_curve(torch, fb, state, step, batch, SPENC_STEPS, "spenc",
-                                   latent=True)
+    times, counts, _ = train_curve(torch, Launches(fb, mt), state, step, batch, SPENC_STEPS,
+                                   "spenc", latent=True)
     print(f"spenc: launches in one step {json.dumps(counts)}")
     if DEV == "cuda":
-        for name, per in train_expect(depth).items():
+        for name, per in dict(train_expect(depth), **UPDATE_EXPECT).items():
             if counts[name] != per:
                 fail(f"spenc: {name}: {counts[name]} launches in one step, expected {per} "
                      "(the flagship step's: the backbone runs once, at B)")
@@ -3838,6 +3978,7 @@ def main() -> int:
 
     from cs_vit_tpu_torch.ops import _build
     from cs_vit_tpu_torch.ops import fused_block as fb
+    from cs_vit_tpu_torch.ops import multi_tensor as mt
     from cs_vit_tpu_torch.ops import probe_overlap as po
     from cs_vit_tpu_torch.ops import window_attention as wa
     from cs_vit_tpu_torch.tools.probe_overlap import make_inputs
@@ -3883,9 +4024,11 @@ def main() -> int:
         check_train(torch, fb, model)
         batch = train_batch(torch, 8, seed=10)
         state, step = new_step(torch, model, torch.bfloat16)
-        times, train_counts, spatial_peak = train_curve(torch, fb, state, step, batch, TRAIN_STEPS)
+        times, train_counts, spatial_peak = train_curve(torch, Launches(fb, mt), state, step,
+                                                        batch, TRAIN_STEPS)
+        update_row = check_update(torch, mt, state)
         check_nan_skip(torch, state, step, batch)
-        expect = train_expect(sum(model.backbone.config.depths))
+        expect = dict(train_expect(sum(model.backbone.config.depths)), **UPDATE_EXPECT)
         print(f"train: launches in one step {json.dumps(train_counts)}")
         for name, per in expect.items():
             if train_counts[name] != per:
@@ -3995,6 +4138,7 @@ def main() -> int:
         "ms": probe_ms["both"], "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
         "library_ms": None,  # no single PyTorch call computes the chain
     })
+    kernels.append(update_row)
     for k in kernels:
         if k["library_ms"]:
             print(f"factor {k['name']}: kernel / library {k['ms'] / k['library_ms']:.3f}x "

@@ -21,7 +21,8 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-SOURCES = ("fused_block", "fused_block_bwd", "window_attention", "probe_overlap")
+SOURCES = ("fused_block", "fused_block_bwd", "window_attention", "probe_overlap",
+           "multi_tensor_adamw")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -10,6 +10,18 @@
   norm is what the train step logs
 * linear warm-up -> cosine anneal -> constant, read at the count of updates
   taken so far, so with warm-up the first update has lr 0, as in optax
+
+On a card the norm, the clip and AdamW are one launch each over every
+trained leaf (``ops.multi_tensor``): the clip's select runs on the card, so
+the update waits for nothing. Every leaf of a card takes them: a grad in a
+layout the kernels do not read (not dense, for the norm and the clip; neither
+contiguous nor stored transposed, for AdamW) goes to them as a contiguous
+copy, and a leaf they do not take at all (not f32, or on another device)
+raises. On the CPU every leaf takes the per-leaf code
+(``torch.optim.AdamW``'s own step, the clip's host branch). Under a profiler
+the two paths are the ``csvit.optim.multi_tensor`` and
+``csvit.optim.per_leaf`` spans, and the optimizer counts the leaves each path
+updated (``leaves_multi_tensor``, ``leaves_per_leaf``).
 """
 
 from __future__ import annotations
@@ -20,6 +32,7 @@ from typing import Callable, Iterable, List, Optional, Union
 import torch
 
 from ..models.poser import Poser, phase_trainable_params
+from ..ops import multi_tensor as mt
 from ..utils.profiling import annotate
 
 Schedule = Callable[[int], float]
@@ -77,6 +90,8 @@ class PhaseAdamW(torch.optim.AdamW):
                  max_grad_norm: float = 5.0, weight_decay: float = 0.01):
         self.schedule = learning_rate if callable(learning_rate) else constant_schedule(learning_rate)
         self.max_grad_norm = max_grad_norm
+        self.leaves_multi_tensor = 0  # AdamW updates of a leaf by the kernels
+        self.leaves_per_leaf = 0      # and by the per-leaf code
         super().__init__(list(params), lr=self.schedule(0), betas=(0.9, 0.999), eps=1e-8,
                          weight_decay=weight_decay)
 
@@ -90,31 +105,61 @@ class PhaseAdamW(torch.optim.AdamW):
                 return int(self.state[p]["step"])
         return 0
 
+    def _card(self) -> Optional[torch.device]:
+        """The card the kernels run on: the first leaf's (None on the CPU)."""
+        device = self.param_groups[0]["params"][0].device
+        return device if device.type == "cuda" else None
+
     @torch.no_grad()
     def grad_norm(self, grads) -> torch.Tensor:
         """The global norm (f32) of `grads`, one per parameter in
         :meth:`params` order (None counts as zeros); under tensor parallelism
-        the norm of the whole tensors, the same on every rank."""
-        if self.sharded is None:
-            return global_norm(g for g in grads if g is not None)
-        replicated = [g for g, s in zip(grads, self.sharded) if g is not None and not s]
-        shards = [g for g, s in zip(grads, self.sharded) if g is not None and s]
-        sq = sum_of_squares(shards)
+        the norm of the whole tensors, the same on every rank. On a card one
+        launch of the kernels, on the CPU per leaf."""
+        card = self._card()
+        grads = [g if g is None or card is None or mt.dense(g) else g.contiguous()
+                 for g in grads]
+        sharded = self.sharded or [False] * len(grads)
+        replicated = [g for g, s in zip(grads, sharded) if g is not None and not s]
+        shards = [g for g, s in zip(grads, sharded) if g is not None and s]
+        if card is not None:
+            with annotate("csvit.optim.multi_tensor"):
+                sq = mt.squares(replicated, shards)
+            if self.sharded is None:
+                return sq[2]
+            rep, sq = sq[0], sq[1]
+        else:
+            with annotate("csvit.optim.per_leaf"):
+                if self.sharded is None:
+                    return global_norm(replicated)
+                rep, sq = sum_of_squares(replicated), sum_of_squares(shards)
         torch.distributed.all_reduce(sq, group=self.model_group)
-        return torch.sqrt(sum_of_squares(replicated).to(sq.device) + sq)
+        return torch.sqrt(rep.to(sq.device) + sq)
 
     @torch.no_grad()
     def clip_grads_(self) -> torch.Tensor:
         """Clip the parameters' grads in place by their global norm, optax's
         way; returns the pre-clip norm (f32). A parameter without a grad counts
-        as zeros. Reading the norm's comparison waits for the card (the
-        ``csvit.sync.clip`` span)."""
+        as zeros. On a card the select runs there; on the CPU the branch is
+        the host's (the ``csvit.sync.clip`` span)."""
+        card = self._card()
+        params = [p for p in self.params() if p.grad is not None]
+        if card is not None:
+            for p in params:
+                if not mt.dense(p.grad):
+                    p.grad = p.grad.contiguous()  # a layout the kernels do not read
         norm = self.grad_norm([p.grad for p in self.params()])
-        with annotate("csvit.sync.clip"):
-            below = bool(norm < self.max_grad_norm)
-        if not below:
-            for g in (p.grad for p in self.params() if p.grad is not None):
-                g.copy_(g / norm.to(g.dtype) * self.max_grad_norm)
+        grads = [p.grad for p in params]
+        if card is not None:
+            with annotate("csvit.optim.multi_tensor"):
+                mt.clip_(grads, norm, self.max_grad_norm)
+            return norm
+        with annotate("csvit.optim.per_leaf"):
+            with annotate("csvit.sync.clip"):
+                below = bool(norm < self.max_grad_norm)
+            if not below:
+                for g in grads:
+                    g.copy_(g / norm.to(g.dtype) * self.max_grad_norm)
         return norm
 
     def scheduled_step(self) -> None:
@@ -123,6 +168,48 @@ class PhaseAdamW(torch.optim.AdamW):
         for group in self.param_groups:
             group["lr"] = lr
         self.step()
+
+    @torch.no_grad()
+    def step(self) -> None:
+        """One AdamW update of every parameter with a grad: on a card by the
+        kernels, one launch a group and update count; on the CPU by
+        ``torch.optim.AdamW``'s own step."""
+        n = sum(p.grad is not None for p in self.params())
+        if self._card() is None:
+            with annotate("csvit.optim.per_leaf"):
+                super().step()
+            self.leaves_per_leaf += n
+            return
+        with annotate("csvit.optim.multi_tensor"):
+            for group in self.param_groups:
+                self._multi_tensor_step(group)
+        self.leaves_multi_tensor += n
+
+    def _multi_tensor_step(self, group: dict) -> None:
+        """AdamW by the kernels over `group`'s parameters with a grad, their
+        state made as ``torch.optim.AdamW`` makes it (a CPU step count, zero
+        moments); one launch for each update count among them."""
+        params = [p for p in group["params"] if p.grad is not None]
+        for p in params:
+            if not self.state[p]:
+                self.state[p] = {
+                    "step": torch.tensor(0.0),
+                    "exp_avg": torch.zeros_like(p, memory_format=torch.preserve_format),
+                    "exp_avg_sq": torch.zeros_like(p, memory_format=torch.preserve_format)}
+        steps = [self.state[p]["step"] for p in params]
+        if not steps:
+            return
+        torch._foreach_add_(steps, 1)
+        by_count = {}
+        for p, t in zip(params, torch.stack(steps).tolist()):
+            g, state = p.grad, self.state[p]
+            if not (g.is_contiguous() or mt.transposed(g)):
+                g = g.contiguous()  # a layout AdamW's kernel does not read
+            by_count.setdefault(t, []).append((p, g, state["exp_avg"], state["exp_avg_sq"]))
+        beta1, beta2 = group["betas"]
+        for t, table in by_count.items():
+            mt.adamw_(*map(list, zip(*table)), lr=group["lr"], beta1=beta1, beta2=beta2,
+                      eps=group["eps"], weight_decay=group["weight_decay"], step=t)
 
 
 def sum_of_squares(tensors) -> torch.Tensor:

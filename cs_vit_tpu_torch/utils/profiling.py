@@ -15,9 +15,14 @@ or any ``torch.profiler.profile``):
   ``csvit.step.cast`` (the parameters' and images' compute-dtype copies),
   ``csvit.step.forward``, ``csvit.step.backward`` and ``csvit.step.update``;
   under the last ``csvit.step.clip`` and ``csvit.step.optim`` (AdamW);
+* ``csvit.optim.multi_tensor`` and ``csvit.optim.per_leaf``
+  (``train/optim.py``), inside ``csvit.step.clip`` and ``csvit.step.optim``:
+  the norm, the clip or AdamW by the multi-tensor kernels (on a card) or by
+  the per-leaf code (on the CPU);
 * ``csvit.sync.<site>``, each place where a train step makes the host wait
   for the card, one sync a span: ``finite`` (the loss's finiteness,
-  ``train/step.py``), ``clip`` (the clip's branch, ``train/optim.py``),
+  ``train/step.py``), ``clip`` (the per-leaf clip's branch,
+  ``train/optim.py``: only on the CPU),
   ``mano_parents`` and ``mano_bottom`` (a list index and a constant row
   copied to the card from pageable memory, ``mano/layer.py``), ``bone_src``
   and ``bone_dst`` (the bones' list indices, ``core/joints.py``); the last

@@ -19,18 +19,25 @@ gemm_dgrad at ``chip_smoke.GEMM_EDGE_SHAPES``, the two LayerNorm kernels at
 ``chip_smoke.LN_EDGE_SHAPES``) and the batches of
 ``chip_smoke.CHECK_BATCHES`` (so also marked ``slow``) with its stated
 tolerances (``chip_smoke.TOL``); the overlap probe's case runs
-``chip_smoke.check_probe`` at the probe's own shapes (``chip_smoke.PROBE_TOL``).
-This file imports no JAX.
+``chip_smoke.check_probe`` at the probe's own shapes (``chip_smoke.PROBE_TOL``);
+the multi-tensor cases (``ops.multi_tensor``) hold the train step's update
+against its per-leaf code over tables of a few hundred leaves and of more
+than one launch's worth. This file imports no JAX.
 """
 
+import json
+
+import numpy as np
 import pytest
 import torch
 
 import chip_smoke
 from cs_vit_tpu_torch.models.swinv2 import _shift_attn_mask
 from cs_vit_tpu_torch.ops import fused_block as fb
+from cs_vit_tpu_torch.ops import multi_tensor as mt
 from cs_vit_tpu_torch.ops import probe_overlap as po
 from cs_vit_tpu_torch.ops import window_attention as wa
+from cs_vit_tpu_torch.train import PhaseAdamW
 
 
 def _need_card():
@@ -384,3 +391,239 @@ def test_cpu_tensors_take_the_plain_attention_and_probe_versions():
             assert torch.equal(got, want)
     assert wa.launch_counts() == {"fused_window_attention": 0}
     assert po.launch_counts() == {"probe_overlap": 0}
+
+
+# --- the train step's update: ops.multi_tensor -----------------------------------------
+
+# the leaves' shapes, in turn: empty and 1-element leaves, sizes on and off a
+# float4 and a chunk (16384) boundary, several chunks; 2-D ones whose grads
+# come stored transposed (the block kernels' weight grads), on and off the
+# 32 x 32 tiles, over several chunks of tiles; a conv weight whose grad comes
+# channels-last
+MT_SHAPES = ((0,), (1,), (3,), (4,), (17,), (255,), (1031,), (16383,), (16384,), (16385,),
+             (40001,), (2,), (640,), (7,), (33, 47), (128, 128), (3, 5461), (257, 65),
+             (96, 1), (8, 3, 4, 4))
+
+
+def _mt_leaves(n, seed):
+    """`n` f32 leaves on the card of the shapes MT_SHAPES in turn; every 9th
+    one a view one element into its storage (contiguous, not on 16 bytes)."""
+    gen = torch.Generator().manual_seed(seed)
+    leaves = []
+    for i in range(n):
+        shape = MT_SHAPES[i % len(MT_SHAPES)]
+        size = int(np.prod(shape))
+        data = torch.randn(size + 1, generator=gen).cuda()
+        data = data[1:] if i % 9 == 4 else data[:size].clone()
+        leaves.append(torch.nn.Parameter(data.view(shape)))
+    return leaves
+
+
+def _mt_grads(leaves, scale, seed, nan=False):
+    """Grads of `leaves`, the 2-D ones stored transposed, the 4-D ones
+    channels-last."""
+    gen = torch.Generator().manual_seed(seed)
+    grads = [(torch.randn(p.shape, generator=gen) * scale).cuda() for p in leaves]
+    if nan:
+        grads[9].view(-1)[5] = float("nan")
+    return [g.t().contiguous().t() if g.dim() == 2
+            else g.contiguous(memory_format=torch.channels_last) if g.dim() == 4 else g
+            for g in grads]
+
+
+def _assert_leaves_close(got, want, what, rel=0.0, scales=None):
+    """Each leaf to f32 round-off: a few ulps, and `rel` (what the clip's
+    scale carries over from the norms' gap), of its largest element, or of
+    `scales` (a bound of each element's terms, for a sum that may cancel)."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if b.numel():
+            top = b.detach().abs().max().nan_to_num(1.0) if scales is None else scales[i]
+            tol = (8 * torch.finfo(torch.float32).eps + rel) * top + 1e-30
+            close = ((a - b).abs() <= tol) | (a.isnan() & b.isnan())
+            assert bool(close.all()), (what, i, float((a - b).abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["below_above", "nan"])
+@pytest.mark.parametrize("n", [300, 1700], ids=["leaves300", "leaves1700"])
+def test_multi_tensor_update_matches_the_per_leaf_path(n, case):
+    """Three clips and AdamW updates (weight decay on) by the kernels against
+    the per-leaf code (``torch.optim.AdamW``'s step and the clip's host
+    branch) from the same grads (2-D ones stored transposed, 4-D ones
+    channels-last): norms under and over the clip, or NaN at the second
+    step; 1700 leaves take more than one launch's table. The kernels
+    sum the squares in f64, the per-leaf code in f32 (its error grows with
+    the leaves summed, ~1e-6 at 1700): a clipped grad and the moments differ
+    by that much more than their round-off (the squares' moment twice), the
+    parameters not (Adam's step does not scale with the grads)."""
+    _need_card()
+    fast, slow = _mt_leaves(n, 1), _mt_leaves(n, 1)
+    fast_opt, slow_opt = PhaseAdamW(fast, 1e-3), PhaseAdamW(slow, 1e-3)
+    slow_opt._card = lambda: None  # the per-leaf code on the card
+    mt.reset_launch_counts()
+    scales = (1e-3, 1.0, 1e-3) if case == "below_above" else (1e-3, 1e-3, 1e-3)
+    rel, g_top = 0.0, [torch.zeros_like(p) for p in slow]
+    for k, scale in enumerate(scales):
+        grads = _mt_grads(fast, scale, 10 + k, nan=case == "nan" and k == 1)
+        for a, b, g in zip(fast, slow, grads):
+            a.grad, b.grad = g.clone(), g.clone()
+        norms = [opt.clip_grads_() for opt in (fast_opt, slow_opt)]
+        for opt in (fast_opt, slow_opt):
+            opt.step()
+        torch.cuda.synchronize()
+        if case == "nan" and k == 1:
+            assert torch.isnan(norms[0]) and torch.isnan(norms[1])
+        else:
+            gap = float((norms[0] - norms[1]).abs() / norms[1])
+            assert gap <= 1e-5, (k, float(norms[0]), float(norms[1]))
+            rel = max(rel, gap)  # the moments keep every step's
+            assert (float(norms[0]) < 5.0) == (scale < 0.1)
+        _assert_leaves_close([p.grad for p in fast], [p.grad for p in slow], f"grad {k}", rel)
+        _assert_leaves_close(fast, slow, f"param {k}")
+        # a moment is a weighted sum of the clipped grads so far (of their
+        # squares), whose terms can cancel: bound each element by the largest
+        g_top = [torch.maximum(t, p.grad.detach().abs()) for t, p in zip(g_top, slow)]
+        for key, top in (("exp_avg", g_top), ("exp_avg_sq", [t * t for t in g_top])):
+            _assert_leaves_close([fast_opt.state[p][key] for p in fast],
+                                 [slow_opt.state[p][key] for p in slow], f"{key} {k}", 2 * rel,
+                                 top)
+    assert fast_opt.leaves_multi_tensor == 3 * n and fast_opt.leaves_per_leaf == 0
+    assert slow_opt.leaves_per_leaf == 3 * n and slow_opt.leaves_multi_tensor == 0
+    assert mt.launch_counts() == {"squares": 3, "clip_": 3, "adamw_": 3}
+
+
+@pytest.mark.gpu
+def test_multi_tensor_norm_is_bit_identical_over_two_launches():
+    _need_card()
+    for n in (300, 1700):
+        grads = _mt_grads(_mt_leaves(n, 2), 1.0, 3)
+        half = n // 3  # the rest as shards of tensor parallelism
+        first = mt.squares(grads[:half], grads[half:])
+        second = mt.squares(grads[:half], grads[half:])
+        want = mt.squares_reference([g.cpu() for g in grads[:half]],
+                                    [g.cpu() for g in grads[half:]])
+        assert torch.equal(first, second), (n, first, second)
+        assert torch.allclose(first.cpu(), want, rtol=1e-6), (n, first, want)
+
+
+@pytest.mark.gpu
+def test_multi_tensor_kernels_refuse_what_they_do_not_take():
+    _need_card()
+    g = [torch.randn(8, 4, device="cuda") for _ in range(3)]
+    norm = torch.full((1,), 10.0, device="cuda")
+    for bad in (torch.randn(8, 8, device="cuda")[:, ::2],     # not dense
+                torch.randn(8, 4, device="cuda").double(),      # not f32
+                torch.randn(8, 4, device="cuda").bfloat16(),
+                torch.randn(8, 4)):                             # on another device
+        table = [*g, bad]
+        with pytest.raises(ValueError):
+            mt.squares(table, [])
+        with pytest.raises(ValueError):
+            mt.clip_(table, norm, 5.0)
+        with pytest.raises(ValueError):
+            mt.adamw_(table, table, table, table, lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8,
+                      weight_decay=0.01, step=1)
+    kw = dict(lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01, step=1)
+    with pytest.raises(ValueError):  # a leaf's grad of another shape
+        mt.adamw_(g, [*g[:2], torch.randn(4, 8, device="cuda")], g, g, **kw)
+    with pytest.raises(ValueError):  # a parameter stored transposed
+        mt.adamw_([*g[:2], g[2].t().contiguous().t()], g, g, g, **kw)
+    with pytest.raises(ValueError):  # a dense grad neither contiguous nor transposed
+        w = [torch.randn(2, 3, 4, 4, device="cuda") for _ in range(2)]
+        mt.adamw_(w, [w[0], w[1].contiguous(memory_format=torch.channels_last)], w, w, **kw)
+    with pytest.raises(ValueError):  # the norm on the host
+        mt.clip_(g, norm.cpu(), 5.0)
+
+
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+              "cuStreamSynchronize", "cuCtxSynchronize", "cuEventSynchronize")
+
+
+@pytest.mark.gpu
+def test_a_train_step_makes_six_syncs_and_none_at_the_clip(tmp_path):
+    """A profiled bf16 spatial step of the flagship (Swin-B-256, the block
+    kernels, b2) on the card, its loss read as the benchmark reads it: 6
+    host syncs (the loss's finiteness, the forward's four pageable copies,
+    the loss read), none in a ``csvit.sync.clip`` span; every leaf, the
+    block kernels' transposed weight grads among them, takes the kernels."""
+    _need_card()
+    from cs_vit_tpu_torch import utils
+
+    model = chip_smoke.train_model(torch)
+    state, step = chip_smoke.new_step(torch, model, torch.bfloat16)
+    batch = chip_smoke.train_batch(torch, 2, seed=4)
+    for _ in range(2):  # the first step makes AdamW's state
+        state, metrics = step(state, batch, None)
+        float(metrics["loss"])
+    torch.cuda.synchronize()
+    with utils.trace(str(tmp_path)) as prof:
+        with torch.profiler.record_function("unit"):  # what the benchmark counts in
+            state, metrics = step(state, batch, None)
+            float(metrics["loss"])
+    with open(prof.trace_path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"
+                  and e.get("cat") != "gpu_user_annotation"]  # the host's events
+
+    def inside(e, s):
+        return s["ts"] <= e["ts"] and e["ts"] + e.get("dur", 0) <= s["ts"] + s["dur"]
+
+    unit = next(e for e in events if e.get("name") == "unit")
+    syncs = [e for e in events if e.get("name") in SYNC_CALLS and inside(e, unit)]
+    named = [e for e in events if str(e.get("name", "")).startswith("csvit.sync.")]
+    where = " ".join("+".join(sorted({s["name"][11:] for s in named if inside(e, s)})) or "-"
+                     for e in syncs)  # each sync's csvit.sync site, "-" for none
+    assert len(syncs) == 6, where
+    assert sorted(where.split()) == sorted(["mano_parents", "mano_bottom", "bone_src",
+                                            "bone_dst", "finite", "-"]), where  # "-": the loss read
+    assert not [e for e in named if e["name"] == "csvit.sync.clip"]
+    opt = state.optimizer
+    assert opt.leaves_per_leaf == 0 and opt.leaves_multi_tensor == 3 * len(opt.params())
+
+
+@pytest.mark.gpu
+def test_update_kernels_hold_at_the_flagship_leaves():
+    """``chip_smoke.check_update`` on the card: the three wrappers at a
+    flagship bf16 step's 651 trained leaves and their grads as the backward
+    left them (transposed weight grads, the conv's channels-last one), each
+    within a few f32 ulps of its plain version; one launch of each wrapper a
+    step, and the kernels line's row."""
+    _need_card()
+    model = chip_smoke.train_model(torch)
+    state, step = chip_smoke.new_step(torch, model, torch.bfloat16)
+    batch = chip_smoke.train_batch(torch, 2, seed=4)
+    launches = chip_smoke.Launches(fb, mt)
+    for _ in range(2):
+        launches.reset_launch_counts()
+        state, metrics = step(state, batch, None)
+        float(metrics["loss"])
+    counts = launches.launch_counts()
+    assert {k: counts[k] for k in chip_smoke.UPDATE_EXPECT} == chip_smoke.UPDATE_EXPECT
+    row = chip_smoke.check_update(torch, mt, state)
+    assert row["launches"] == 4 and row["max_abs_err"] < 1e-3
+    assert 0 < row["bound_ms"] < row["ms"] < row["library_ms"]
+
+
+@pytest.mark.gpu
+def test_sharded_norm_on_the_card_all_reduces_the_shards_sum(monkeypatch):
+    """Tensor parallelism's norm on the card: the kernels' shards' sum is the
+    tensor all-reduced (faked: two ranks holding the same shards), the
+    replicated leaves counted once."""
+    _need_card()
+    leaves = _mt_leaves(300, 5)
+    opt = PhaseAdamW(leaves, 1e-3)
+    opt.sharded = [i % 3 == 1 for i in range(len(leaves))]
+    grads = _mt_grads(leaves, 1.0, 6)
+    reduced = []
+
+    def all_reduce(t, group=None):
+        reduced.append(t.clone())
+        t.mul_(2)
+
+    monkeypatch.setattr(torch.distributed, "all_reduce", all_reduce)
+    norm = opt.grad_norm(grads)
+    want = mt.squares_reference([g.cpu() for g, s in zip(grads, opt.sharded) if not s],
+                                [g.cpu() for g, s in zip(grads, opt.sharded) if s])
+    assert len(reduced) == 1 and reduced[0].is_cuda
+    assert torch.allclose(reduced[0].cpu(), want[1], rtol=1e-6), (reduced[0], want)
+    whole = (want[0].double() + 2 * want[1].double()).sqrt().float()
+    assert torch.allclose(norm.cpu(), whole, rtol=1e-6), (norm, whole)

@@ -32,7 +32,10 @@ STEP_TREE = {
     "csvit.step": ["csvit.step.cast", "csvit.step.forward", "csvit.step.backward",
                    "csvit.step.update"],
     "csvit.step.update": ["csvit.sync.finite", "csvit.step.clip", "csvit.step.optim"],
-    "csvit.step.clip": ["csvit.sync.clip"],
+    # on the CPU the update takes the per-leaf code: the norm, then the
+    # clip's host branch, whose sync opens inside it; AdamW
+    "csvit.step.clip": ["csvit.optim.per_leaf", "csvit.optim.per_leaf", "csvit.sync.clip"],
+    "csvit.step.optim": ["csvit.optim.per_leaf"],
 }
 SERVE_TREE = {None: ["csvit.serve.input", "csvit.serve.forward", "csvit.serve.output"] * 2}
 

@@ -30,6 +30,7 @@ each with its reason:
 """
 
 import copy
+import json
 
 import jax
 import jax.numpy as jnp
@@ -45,14 +46,17 @@ from cs_vit_tpu.train import build_optimizer as j_build_optimizer
 from cs_vit_tpu.train import make_train_step as j_make_train_step
 from cs_vit_tpu.train import scaled_lr as j_scaled_lr
 from cs_vit_tpu.train import warmup_cosine_schedule as j_warmup_cosine_schedule
+from cs_vit_tpu_torch import utils
 from cs_vit_tpu_torch.cli.common import build_model
 from cs_vit_tpu_torch.config import FinetuneConfig
 from cs_vit_tpu_torch.mano import ManoLayer, sh_joint_regressor, synthetic_assets
 from cs_vit_tpu_torch.models import Poser, PoserConfig, SwinV2Config, init_poser_weights
 from cs_vit_tpu_torch.models.modules import TorchBatchNorm
 from cs_vit_tpu_torch.models.poser import derivative, phase_trainable_params
+from cs_vit_tpu_torch.ops import multi_tensor as mt
 from cs_vit_tpu_torch.serving import PoserSession
 from cs_vit_tpu_torch.train import (
+    PhaseAdamW,
     TrainState,
     build_optimizer,
     latest_checkpoint,
@@ -65,6 +69,7 @@ from cs_vit_tpu_torch.train import (
     state_dict_from_flax,
     warmup_cosine_schedule,
 )
+from cs_vit_tpu_torch.train.optim import sum_of_squares
 
 from .helpers import TINY_SWIN, tiny_batch, tiny_poser
 
@@ -347,3 +352,221 @@ def test_spatial_steps_fit_a_fixed_batch(impl):
         losses.append(float(metrics["loss"]))
     assert np.isfinite(losses).all() and state.step == 200
     assert losses[-1] < 0.5 * losses[0], (losses[0], losses[-1])
+
+
+# ---------------------------------------------------------------------------
+# The update's two paths: the multi-tensor kernels (ops.multi_tensor) and the
+# per-leaf code. On the CPU every leaf takes the per-leaf code; with the
+# optimizer's card set to the CPU, the kernels' plain versions stand in for
+# the kernels, so the multi-tensor path's bookkeeping runs here. Tolerance
+# between the two: f32 round-off (the kernels' norm sums in f64, the per-leaf
+# norm in f32, so a clipped grad may differ by an ulp or two).
+
+ODD_SHAPES = [(3, 4), (5,), (1,), (0,), (7, 9), (2, 3, 5), (16,)]
+
+
+def _leaves(seed, shapes=ODD_SHAPES):
+    rng = np.random.default_rng(seed)
+    return [torch.nn.Parameter(torch.from_numpy(rng.normal(size=s).astype(np.float32)))
+            for s in shapes]
+
+
+def _grads(rng, leaves, scale):
+    return [torch.from_numpy((rng.normal(size=p.shape) * scale).astype(np.float32))
+            for p in leaves]
+
+
+def _on_the_card(monkeypatch):
+    """Have the optimizer take the CPU for its card: its leaves take the
+    multi-tensor path, run by the kernels' plain versions."""
+    monkeypatch.setattr(PhaseAdamW, "_card", lambda self: torch.device("cpu"))
+
+
+def _assert_close_leaves(got, want):
+    for a, b in zip(got, want):
+        a, b = a.detach().numpy(), b.detach().numpy()
+        np.testing.assert_allclose(a, b, rtol=2e-6, atol=1e-6 * (np.abs(b).max(initial=0) + 1))
+
+
+def test_cpu_leaves_take_the_per_leaf_path(tmp_path):
+    """A CPU step's leaves all take the per-leaf code: the counters say so,
+    and the clip and AdamW each open only ``csvit.optim.per_leaf`` spans."""
+    model = _port_tiny()
+    init_poser_weights(model, 0)
+    state = TrainState.create(model, build_optimizer(model, "spatial", LR))
+    step = make_train_step(model, state.optimizer, "spatial")
+    batch = _torch_batch(tiny_batch(np.random.default_rng(11), B=2, T=1))
+    with utils.trace(str(tmp_path)) as prof:
+        state, _ = step(state, batch, None)
+    opt = state.optimizer
+    assert opt.leaves_per_leaf == len(opt.params()) and opt.leaves_multi_tensor == 0
+    with open(prof.trace_path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    spans = {n: [e for e in events if e.get("name") == n] for n in (
+        "csvit.step.clip", "csvit.step.optim", "csvit.optim.per_leaf",
+        "csvit.optim.multi_tensor", "csvit.sync.clip")}
+    assert not spans["csvit.optim.multi_tensor"]
+
+    def inside(e, parent):
+        return any(p["ts"] <= e["ts"] and e["ts"] + e["dur"] <= p["ts"] + p["dur"]
+                   for p in spans[parent])
+
+    assert len(spans["csvit.optim.per_leaf"]) == 3  # the norm, the clip's branch, AdamW
+    assert sum(inside(e, "csvit.step.clip") for e in spans["csvit.optim.per_leaf"]) == 2
+    assert sum(inside(e, "csvit.step.optim") for e in spans["csvit.optim.per_leaf"]) == 1
+    assert len(spans["csvit.sync.clip"]) == 1
+    assert all(inside(e, "csvit.optim.per_leaf") for e in spans["csvit.sync.clip"])
+
+
+@pytest.mark.parametrize("case", ["below", "above", "nan"])
+def test_kernel_plain_versions_match_the_optimizer(case):
+    """Three updates by ``multi_tensor``'s plain versions (the kernels'
+    arithmetic: the norm, the select, AdamW) against ``clip_grads_`` and
+    ``step()`` on the CPU, from the same grads: norm under the clip, over
+    it, NaN."""
+    rng = np.random.default_rng(7)
+    leaves, copies = _leaves(1), _leaves(1)
+    opt = PhaseAdamW(leaves, LR)
+    m = [torch.zeros_like(p) for p in copies]
+    v = [torch.zeros_like(p) for p in copies]
+    for t in (1, 2, 3):
+        grads = _grads(rng, leaves, {"below": 0.1, "above": 10.0, "nan": 1.0}[case])
+        if case == "nan" and t == 2:
+            grads[4][1, 2] = float("nan")
+        for p, g in zip(leaves, grads):
+            p.grad = g.clone()
+        norm = opt.clip_grads_()
+        opt.step()
+        want = mt.squares_reference(grads, [])[2]
+        mt.clip_reference_(grads, want, 5.0)
+        mt.adamw_reference_([p.data for p in copies], grads, m, v, lr=LR, beta1=0.9,
+                            beta2=0.999, eps=1e-8, weight_decay=0.01, step=t)
+        np.testing.assert_allclose(float(norm), float(want), rtol=1e-6)
+        assert (float(norm) < 5.0) == {"below": True, "above": False, "nan": False}[case]
+        _assert_close_leaves([p.grad for p in leaves], grads)
+        _assert_close_leaves(leaves, copies)
+        _assert_close_leaves([opt.state[p]["exp_avg_sq"] for p in leaves], v)
+    if case == "nan":
+        assert all(torch.isnan(p).all() for p in leaves if p.numel())
+
+
+def _laid_out(g, layout):
+    """`g` as a grad the backward may give: contiguous, stored transposed
+    (a 2-D one), or every other element of a wider buffer (not dense)."""
+    if layout == "transposed" and g.dim() == 2:
+        return g.t().contiguous().t()
+    if layout == "strided" and g.dim() == 2:
+        wide = torch.zeros(g.shape[0], 2 * g.shape[1])
+        wide[:, ::2] = g
+        return wide[:, ::2]
+    return g.clone()
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "transposed", "strided"])
+def test_multi_tensor_path_matches_the_per_leaf_path(layout, monkeypatch):
+    """Three clips and updates on the multi-tensor path (plain versions
+    standing in for the kernels) against the per-leaf path, from the same
+    grads; one leaf misses the first update, so the leaves' update counts
+    differ after it. Two 2-D leaves' grads come in `layout`: stored
+    transposed, or not dense (the kernels then take a contiguous copy); every
+    leaf takes the kernels all the same."""
+    rng = np.random.default_rng(3)
+    fast, slow = _leaves(2), _leaves(2)
+    fast_opt, slow_opt = PhaseAdamW(fast, LR), PhaseAdamW(slow, LR)
+    _on_the_card(monkeypatch)
+    odd = {0, 4}
+    for k, scale in enumerate((0.1, 10.0, 0.1)):
+        grads = _grads(rng, fast, scale)
+        for i, (a, b, g) in enumerate(zip(fast, slow, grads)):
+            if k == 0 and i == 1:
+                a.grad = b.grad = None
+                continue
+            a.grad = _laid_out(g, layout) if i in odd else g.clone()
+            b.grad = g.clone()
+        norms = [fast_opt.clip_grads_(), None]
+        fast_opt.step()
+        monkeypatch.undo()
+        norms[1] = slow_opt.clip_grads_()
+        slow_opt.step()
+        _on_the_card(monkeypatch)
+        np.testing.assert_allclose(float(norms[0]), float(norms[1]), rtol=1e-6)
+        _assert_close_leaves([p.grad for p in fast if p.grad is not None],
+                             [p.grad for p in slow if p.grad is not None])
+        _assert_close_leaves(fast, slow)
+    for a, b in zip(fast, slow):
+        sa, sb = fast_opt.state[a], slow_opt.state[b]
+        assert float(sa["step"]) == float(sb["step"]) == (2.0 if a is fast[1] else 3.0)
+        _assert_close_leaves([sa["exp_avg"], sa["exp_avg_sq"]], [sb["exp_avg"], sb["exp_avg_sq"]])
+    assert fast_opt.leaves_per_leaf == 0
+    assert fast_opt.leaves_multi_tensor == 3 * len(fast) - 1
+    assert slow_opt.leaves_multi_tensor == 0
+    assert slow_opt.leaves_per_leaf == 3 * len(slow) - 1
+
+
+@pytest.mark.parametrize("path", ["per_leaf", "multi_tensor"])
+def test_sharded_norm_all_reduces_the_shards_sum(path, monkeypatch):
+    """Under tensor parallelism the norm all-reduces the shards' sum of
+    squares over the model group and counts the replicated leaves once, on
+    either path (the all-reduce faked: two ranks holding the same shards)."""
+    rng = np.random.default_rng(9)
+    leaves = _leaves(6)
+    opt = PhaseAdamW(leaves, LR)
+    opt.sharded = [i % 2 == 1 for i in range(len(leaves))]
+    grads = _grads(rng, leaves, 1.0)
+    reduced = []
+
+    def all_reduce(t, group=None):
+        reduced.append(t.clone())
+        t.mul_(2)
+
+    monkeypatch.setattr(torch.distributed, "all_reduce", all_reduce)
+    if path == "multi_tensor":
+        _on_the_card(monkeypatch)
+    norm = opt.grad_norm(grads)
+    rep = sum_of_squares(g for g, s in zip(grads, opt.sharded) if not s)
+    shards = sum_of_squares(g for g, s in zip(grads, opt.sharded) if s)
+    assert len(reduced) == 1
+    np.testing.assert_allclose(float(reduced[0]), float(shards), rtol=1e-6)
+    np.testing.assert_allclose(float(norm), float(torch.sqrt(rep + 2 * shards)), rtol=1e-6)
+
+
+@pytest.mark.parametrize("path", ["per_leaf", "multi_tensor"])
+def test_adamw_state_stays_per_leaf_and_older_checkpoints_step_on(path, tmp_path, monkeypatch):
+    """``state_dict()`` keeps ``step``, ``exp_avg`` and ``exp_avg_sq`` per
+    leaf, updated in place; a state written by ``torch.optim.AdamW`` (the
+    optimizer's format before its update had kernels) loads and steps on as
+    ``torch.optim.AdamW`` would, on either path."""
+    rng = np.random.default_rng(5)
+    older, leaves = _leaves(4), _leaves(4)
+    old_opt = torch.optim.AdamW(older, lr=LR, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01)
+    for _ in range(2):
+        for p, g in zip(older, _grads(rng, older, 0.1)):
+            p.grad = g
+        old_opt.step()
+    torch.save(old_opt.state_dict(), tmp_path / "optimizer.pt")
+    with torch.no_grad():
+        for p, q in zip(leaves, older):
+            p.copy_(q)
+    if path == "multi_tensor":
+        _on_the_card(monkeypatch)
+    opt = PhaseAdamW(leaves, LR)
+    opt.load_state_dict(torch.load(tmp_path / "optimizer.pt"))
+    assert opt.updates_taken() == 2
+    moments = [(opt.state[p]["exp_avg"], opt.state[p]["exp_avg_sq"]) for p in leaves]
+    for _ in range(2):
+        for p, q, g in zip(leaves, older, _grads(rng, older, 0.1)):
+            p.grad, q.grad = g.clone(), g.clone()
+        opt.step()
+        old_opt.step()
+    assert (opt.leaves_multi_tensor, opt.leaves_per_leaf) == (
+        (2 * len(leaves), 0) if path == "multi_tensor" else (0, 2 * len(leaves)))
+    sd = opt.state_dict()
+    assert sorted(sd["state"]) == list(range(len(leaves)))
+    for i, p in enumerate(leaves):
+        assert set(sd["state"][i]) == {"step", "exp_avg", "exp_avg_sq"}
+        assert float(sd["state"][i]["step"]) == 4.0
+        assert opt.state[p]["exp_avg"] is moments[i][0]
+        assert opt.state[p]["exp_avg_sq"] is moments[i][1]
+    _assert_close_leaves(leaves, older)
+    _assert_close_leaves([opt.state[p]["exp_avg_sq"] for p in leaves],
+                         [old_opt.state[q]["exp_avg_sq"] for q in older])
