@@ -4,6 +4,7 @@ file of the benchmark that imports the program."""
 
 from __future__ import annotations
 
+import importlib
 from typing import Dict, Tuple
 
 import torch
@@ -11,10 +12,12 @@ import torch
 from cs_vit_tpu_torch.cli.common import build_model
 from cs_vit_tpu_torch.config import FinetuneConfig
 from cs_vit_tpu_torch.models.poser import phase_trainable_params
-from cs_vit_tpu_torch.models.swinv2 import SwinV2Block
+from cs_vit_tpu_torch.parallel import init_distributed
 from cs_vit_tpu_torch.serving import PoserSession
 from cs_vit_tpu_torch.train import TrainState, build_optimizer, make_train_step
 from cs_vit_tpu_torch.train.optim import scaled_lr
+
+from .backbones import kind as backbone_kind
 
 _MANO = ("v_template", "shapedirs", "posedirs", "j_regressor", "lbs_weights", "pose_mean")
 
@@ -37,15 +40,16 @@ def finetune_config(config: dict, phase: str, serve: bool = False) -> FinetuneCo
 
 def _check_backbone(model, config: dict) -> None:
     """The program picks the backbone's widths by name: they have to be the
-    configuration file's."""
+    configuration file's (the attributes its kind names)."""
     c, bb = model.backbone.config, config["model"]["backbone"]
-    got = dict(embed_dim=c.embed_dim, depths=list(c.depths), num_heads=list(c.num_heads),
-               window_size=c.window_size, patch_size=c.patch_size, mlp_ratio=c.mlp_ratio,
-               drop_path_rate=c.drop_path_rate, layer_norm_eps=c.layer_norm_eps,
-               pretrained_window_sizes=list(c.pretrained_window_sizes))
+    got = {k: _plain(getattr(c, k)) for k in backbone_kind(config["model"]).PROGRAM_CONFIG}
     want = {k: bb[k] for k in got}
     if got != want:
         raise ValueError(f"the program's {bb['name']} is {got}, the configuration states {want}")
+
+
+def _plain(v):
+    return list(v) if isinstance(v, tuple) else v
 
 
 def _fill(model, weights, stats, mano) -> None:
@@ -71,17 +75,19 @@ def session(config: dict, batch_size: int, seq_len: int, weights, stats, mano,
     return sess
 
 
-def train_state(config: dict, batch_size: int, weights, stats, mano, device) -> Tuple:
+def train_state(config: dict, batch_size: int, weights, stats, mano, device,
+                world: int = 1) -> Tuple:
     """(state, step, names) for the spatial phase: the model with f32
-    masters on `device`, AdamW at the fine-tune's scaled rate and clip, the
-    step in the configuration's compute dtype; `names` maps each trained
-    parameter to its name."""
+    masters on `device`, AdamW at the fine-tune's scaled rate for `world`
+    cards and its clip, the step in the configuration's compute dtype (in a
+    world that ``join_world`` joined, the program's data-parallel step);
+    `names` maps each trained parameter to its name."""
     cfg = finetune_config(config, "spatial")
     model = build_model(cfg).to(device)
     _check_backbone(model, config)
     _fill(model, weights, stats, mano)
     tr = config["train"]
-    optimizer = build_optimizer(model, "spatial", lr_for(config, batch_size),
+    optimizer = build_optimizer(model, "spatial", lr_for(config, batch_size, world),
                                 tr["max_grad_norm"], tr["weight_decay"])
     state = TrainState.create(model, optimizer)
     step = make_train_step(model, optimizer, "spatial",
@@ -90,14 +96,24 @@ def train_state(config: dict, batch_size: int, weights, stats, mano, device) -> 
     return state, step, names
 
 
-def lr_for(config: dict, batch_size: int) -> float:
-    """The fine-tune's constant rate for one card at `batch_size`."""
-    return scaled_lr(config["train"]["lr"], 1, batch_size)
+def lr_for(config: dict, batch_size: int, world: int = 1) -> float:
+    """The fine-tune's constant rate for `world` cards at `batch_size` a
+    card."""
+    return scaled_lr(config["train"]["lr"], world, batch_size)
 
 
-def block_modules(model) -> list:
-    """The backbone's SwinV2 blocks."""
-    return [m for m in model.modules() if isinstance(m, SwinV2Block)]
+def join_world(device) -> bool:
+    """Join the world that the launcher's environment describes (the
+    program's ``parallel.init_distributed``: NCCL on a card, gloo on the
+    CPU); whether this process is in one."""
+    return init_distributed(torch.device(device).type)
+
+
+def block_modules(model, config: dict) -> list:
+    """The backbone's blocks (its kind's program block class)."""
+    module, name = backbone_kind(config["model"]).PROGRAM_BLOCK.rsplit(".", 1)
+    block = getattr(importlib.import_module(module), name)
+    return [m for m in model.modules() if isinstance(m, block)]
 
 
 def head_modules(model) -> Dict[str, torch.nn.Module]:

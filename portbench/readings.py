@@ -7,7 +7,9 @@ one process (the kernels built once).
 
 Each run is ``portbench.run.run_cell`` with a short window; in a fault run
 the driver plants the fault after set-up, or puts the control in the
-program's place. One JSON line a run.
+program's place. One JSON line a run. A cell on more than one card runs
+the whole plan in one process a card (``portbench.world.launch``); rank 0
+writes.
 The benchmark's own runs never run these.
 """
 
@@ -32,25 +34,33 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     import torch
 
+    from . import world
+    from .cell import load_cell
     from .run import run_cell
 
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    chips = load_cell(args.workload).chips
+    if chips > 1 and not world.launched():
+        return world.launch(chips, "portbench.readings", sys.argv[1:] if argv is None else argv,
+                            time.perf_counter())
+    world.quiet()
     plan = [(None, int(s)) for s in args.seeds.split(",") if s]
     for part in filter(None, args.faults.split(";")):
         fault, seeds = part.split(":")
         plan += [(fault, int(s)) for s in seeds.split(",")]
-    with open(args.out, "a") as f:
-        for fault, seed in plan:
-            t = time.perf_counter()
-            r = run_cell(args.workload, seed, args.seconds, bool(args.trace), fault=fault,
-                         t_start=time.perf_counter())
-            line = {"workload": args.workload, "fault": fault, "seed": seed,
-                    "run_s": time.perf_counter() - t, **r}
-            print(json.dumps(line), flush=True)
-            f.write(json.dumps(line) + "\n")
-            f.flush()
-            gc.collect()
-            torch.cuda.empty_cache()
+    for fault, seed in plan:
+        t = time.perf_counter()
+        r = run_cell(args.workload, seed, args.seconds, bool(args.trace), fault=fault,
+                     t_start=time.perf_counter())
+        if r is not None:  # rank 0
+            line = json.dumps({"workload": args.workload, "fault": fault, "seed": seed,
+                               "run_s": time.perf_counter() - t, **r})
+            print(line, flush=True)
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+            with open(args.out, "a") as f:
+                f.write(line + "\n")
+        gc.collect()
+        torch.cuda.empty_cache()
+    world.leave()
     return 0
 
 

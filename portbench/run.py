@@ -15,6 +15,13 @@ stdout line is one JSON object (``correct``,
 ``breakdown``, and last ``checks``: each compared number with its limit);
 the last stderr lines give the same numbers. No card, or fewer cards than
 the cell asks for: exit 2 and no result.
+
+A cell on more than one card runs one process a card, started by
+``torch.distributed.run`` (``portbench.world.launch``); rank 0 prints the
+result alone, and set-up counts from the launcher's start. The ranks agree once,
+before the window, on how many units fill ``--seconds`` at the slowest
+rank's warm-up pace, and each runs that many; the peak is the fullest
+card's, and a traced run's ``busy_s`` the ranks' mean.
 """
 
 from __future__ import annotations
@@ -40,13 +47,14 @@ def forbidden_modules() -> list:
 
 
 def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = "cuda",
-             cell=None, fault: Optional[str] = None, t_start: float = T_START) -> dict:
+             cell=None, fault: Optional[str] = None, t_start: float = T_START) -> Optional[dict]:
     """One run of cell `name` (or of the given `cell`); returns the result
-    object. `fault`: the driver plants it after set-up, or puts the control
-    in the program's place (the benchmark's own runs never do)."""
+    object (None on a rank other than 0). `fault`: the driver plants it after
+    set-up, or puts the control in the program's place (the benchmark's own
+    runs never do)."""
     import torch
 
-    from . import tracing
+    from . import tracing, world
     from .cell import driver_module, load_cell, reader
 
     cell = cell or load_cell(name)
@@ -63,40 +71,53 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, device: str = "c
     sync()
     if cuda:
         torch.cuda.reset_peak_memory_stats()
+    ranks = world.size()
+    # a world runs a number of units that all its ranks agree on
+    count = max(1, round(seconds / world.agree(driver.pace))) if ranks > 1 else None
     t0 = time.perf_counter()
     setup_s = t0 - t_start
     units = []
-    while time.perf_counter() - t0 < seconds:
+    while (len(units) < count) if count else (time.perf_counter() - t0 < seconds):
         a = time.perf_counter()
         samples = driver.unit()
         units.append((samples, time.perf_counter() - a))
     sync()
     window_s = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    peaks = world.gather(torch.cuda.max_memory_allocated() if cuda else 0)
+    lead = world.rank() == 0
+    peak = max(peaks) if lead else 0
+    if lead and ranks > 1:
+        print(f"peak bytes by rank: {peaks}", file=sys.stderr)
     window = {"units": units, "window_s": window_s, "setup_s": setup_s, "peak_bytes": peak}
 
     result_device = {"platform": "gpu" if cuda else "cpu",
                      "kind": torch.cuda.get_device_name() if cuda else "cpu",
-                     "count": 1, "memory_peak_bytes": peak}
+                     "count": ranks, "memory_peak_bytes": peak}
     metrics, breakdown = {}, None
     if trace:
         chrome, host_s = tracing.capture(driver.unit, driver.trace_units, driver.spans(),
                                          driver.optimizer())
         info = dict(driver.work(), unit_s=window_s / max(len(units), 1))
         tr = tracing.Trace(chrome, info)
-        for m in cell.per_layer:
-            value = reader("layers", m["name"])(tr)
-            if value is not None:
-                metrics[m["name"]] = {"value": value, "unit": m["unit"]}
-        result_device.update(busy_s=tr.busy_us() * 1e-6, window_s=host_s)
-        breakdown = {"device_ops": [list(x) for x in tr.top_device_ops()[:10]],
-                     "idle_gaps": [list(x) for x in tr.idle_gaps()[:10]]}
-    else:
+        busy = world.gather(tr.busy_us() * 1e-6)
+        if lead and ranks > 1:
+            print(f"busy seconds by rank: {busy}", file=sys.stderr)
+        if lead:
+            for m in cell.per_layer:
+                value = reader("layers", m["name"])(tr)
+                if value is not None:
+                    metrics[m["name"]] = {"value": value, "unit": m["unit"]}
+            result_device.update(busy_s=sum(busy) / ranks, window_s=host_s)
+            breakdown = {"device_ops": [list(x) for x in tr.top_device_ops()[:10]],
+                         "idle_gaps": [list(x) for x in tr.idle_gaps()[:10]]}
+    elif lead:
         for m in cell.end_to_end:
             value = reader("e2e", m["name"])(window)
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     driver.finish()
     driver.release()
+    if not lead:
+        return None
     numbers = driver.check()
     # the numbers the workload file gives a limit are compared; the rest are kept beside
     info = numbers.pop("info", {})
@@ -141,11 +162,21 @@ def main(argv=None) -> int:
               f"torch.cuda.is_available() is {torch.cuda.is_available()}, "
               f"{torch.cuda.device_count()} visible", file=sys.stderr)
         return 2
-    result = run_cell(args.workload, args.seed, args.seconds, bool(args.trace), cell=cell)
+    from . import world
+
+    if cell.chips > 1 and not world.launched():
+        return world.launch(cell.chips, "portbench.run",
+                            sys.argv[1:] if argv is None else argv, T_START)
+    world.quiet()
+    result = run_cell(args.workload, args.seed, args.seconds, bool(args.trace), cell=cell,
+                      t_start=world.start_time(T_START))
+    world.leave()
     found = forbidden_modules()
     if found:
         print(f"portbench: loaded in this process: {', '.join(found)}", file=sys.stderr)
         return 3
+    if result is None:  # a rank other than 0
+        return 0
     for k, c in result["checks"].items():
         print(f"check {k}: {c['value']!r} (limit {c['limit']!r})", file=sys.stderr)
     print(json.dumps(result))

@@ -86,7 +86,7 @@ class Serving:
 
     def spans(self):
         model = self.session.model
-        return ([(b, "pb.block") for b in program.block_modules(model)]
+        return ([(b, "pb.block") for b in program.block_modules(model, self.cell.config)]
                 + [(mod, f"pb.head.{n}") for n, mod in program.head_modules(model).items()])
 
     def optimizer(self):

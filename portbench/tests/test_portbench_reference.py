@@ -65,9 +65,9 @@ def test_train_steps_match(kind):
         if grads is None:  # step 1's clipped gradients, as the optimizer got them
             grads = {names[id(p)]: p.grad.detach().clone() for p in state.optimizer.params()}
     with reference_numerics("f32"):
-        want = reference_steps(ref, batches, program.lr_for(config, 4),
-                               torch.Generator().manual_seed(11),
-                               torch.Generator().manual_seed(12) if kind == "spenc" else None)
+        want = reference_steps(ref, [[b] for b in batches], program.lr_for(config, 4),
+                               [torch.Generator().manual_seed(11)],
+                               [torch.Generator().manual_seed(12)] if kind == "spenc" else None)
     np.testing.assert_allclose(losses, want["losses"], rtol=1e-5)
     np.testing.assert_allclose(joints.numpy(), want["joints"].numpy(), atol=0.05)
     norms = {n: float(torch.linalg.vector_norm(g)) for n, g in want["grads"].items()}

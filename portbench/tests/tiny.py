@@ -8,7 +8,9 @@ reading at this size (the control reads 16 mm or more of a crop's mean
 and 0.99 or more of ``grad``; the faults 0.38 or more of ``grad`` or
 ``grad_last``, or 1 of ``change_last``, and 160 mm or more of a crop's
 mean; the cells' own limits are for bf16 at full size). A tiny cell
-compares the numbers its full-size cell compares."""
+compares the numbers its full-size cell compares; a cell of several cards
+runs in a gloo world of two processes (``world_worker``), whose ranks'
+leaves have to stay equal to the bit (``ranks_apart`` 0)."""
 
 from __future__ import annotations
 
@@ -27,7 +29,10 @@ TINY_PARAMS = {"train": {"batch": 4, "pool": 4, "calibration": 8, "keep_at": 5, 
 
 
 TINY_LIMITS = {"joint_mean_mm": 1.0, "joint_mean_mm_last": 1.0, "grad_last": 0.01,
-               "grad_blocks_last": 0.01, "change_last": 0.01, "crop_mean_mm": 1.0}
+               "grad_blocks_last": 0.01, "change_last": 0.01, "crop_mean_mm": 1.0,
+               "ranks_apart": 0.0}
+# a cell of several cards runs in a world of two at this size
+TINY_WORLD = 2
 
 
 def tiny_cell(name: str, dtype: str = "float32"):
@@ -40,6 +45,9 @@ def tiny_cell(name: str, dtype: str = "float32"):
     config["model"].update(img_size=32, backbone=TINY_BACKBONE, num_spatial_layer=2,
                            num_temporal_layer=1)
     config["train"]["dtype"] = config["serve"]["dtype"] = dtype
-    workload = dict(workload, params=TINY_PARAMS[workload["kind"]],
+    params = dict(TINY_PARAMS[workload["kind"]])
+    if workload["params"].get("world", 1) > 1:
+        params["world"] = TINY_WORLD
+    workload = dict(workload, params=params,
                     limits={k: TINY_LIMITS[k] for k in workload["limits"]})
     return load_cell(name, bench, config, workload)

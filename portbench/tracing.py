@@ -4,7 +4,7 @@ After the untraced window, a few more units (steps or requests) run under
 ``torch.profiler`` (CPU and CUDA activity), each inside a ``pb.unit`` range.
 The benchmark's own spans are ``record_function`` ranges opened and closed
 by forward pre- and post-hooks on the program's modules (``pb.block`` on
-each SwinV2 block, ``pb.head.<name>`` on each top-level submodule of the
+each block of the backbone, ``pb.head.<name>`` on each top-level submodule of the
 Poser but the backbone) and by the optimizer's step hooks (``pb.optim``);
 they are attached for the traced units only. The profiler's Chrome trace is
 written to a temporary file, read back, and deleted.

@@ -1,9 +1,20 @@
 """Traffic kind ``train``: spatial fine-tune steps of the program.
 
-Params: ``batch`` (crops a step, T=1), ``pool`` (distinct batches made on
-the card from the seed; the steps cycle through them), ``calibration``
-(rows of the calibration batch), ``trace_units`` (steps profiled),
-``keep_at`` (the step after which set-up keeps a copy of the state).
+Params: ``batch`` (crops a step a card, T=1), ``pool`` (distinct batches
+made on the card from the seed; the steps cycle through them),
+``calibration`` (rows of the calibration batch), ``trace_units`` (steps
+profiled), ``keep_at`` (the step after which set-up keeps a copy of the
+state), ``world`` (cards, 1 when absent).
+
+In a world of more than one card every rank builds the same weights from
+the seed, joins the program's world (``program.join_world``) and trains on
+batches and droppath draws of its own (rank 0's are those of a one-card
+cell) through the program's data-parallel step; a unit is one step of the
+world, ``world * batch`` crops. Rank 0 reports; the reference follows the
+program's data-parallel semantics over the global batch, one rank's rows
+at a time on rank 0's card: each rank's rows through the forward with
+BatchNorm on their own statistics, the loss and the gradients averaged over
+the ranks, then the clip and AdamW; the readings are rank 0's.
 
 Set-up builds the train state (f32 masters, AdamW, the compute dtype's
 step), then drives it through its first steps, on batches 0, 1, 2, ...,
@@ -39,14 +50,19 @@ reference's norm of that leaf and of the median leaf:
   blocks alone (24 leaves a kind, whose weight gradients the block
   kernels compute);
 - ``change``: the median leaf's gap of the change in weights after three
-  steps (after the one step).
+  steps (after the one step);
+- ``ranks_apart`` (a world of more than one card): the largest difference
+  between the ranks' copies of any trained leaf after the step after the
+  window.
 
 The workload file's limits say which are compared. Kept beside them
 (``info``): the relative loss gaps, the widest joint gap, and the worst
 leaf and kinds by name.
 
 Faults for the readings (``plant``): ``frozen`` (the program's step leaves
-the parameters where they were); in the program's place the reference
+the parameters where they were), ``exchange`` (the program's step without
+its average across the world: each rank steps on its own rows' loss and
+gradients); in the program's place the reference
 with ``control`` (its products in fp8), ``half`` (the forward over the
 whole batch, the loss over its first half), ``grad2`` (the backbone's
 backward returns twice the gradient), ``dw`` (every block's MLP output
@@ -55,13 +71,14 @@ weight gets twice its gradient).
 
 from __future__ import annotations
 
-import re
 import statistics
+import time
 from collections import defaultdict
 
 import torch
 
-from portbench import flops, program
+from portbench import flops, program, world
+from portbench.backbones import kind as backbone_kind
 from portbench.inputs import crops
 from portbench.reference import Poser, reference_numerics, reference_steps
 from portbench.weights import calibrate, derive, load_reference, make_mano, make_weights
@@ -82,13 +99,21 @@ class Driver:
         p = cell.params
         self.batch, self.pool, self.trace_units = p["batch"], p["pool"], p["trace_units"]
         self.keep_at = p["keep_at"]
+        self.world = p.get("world", 1)
+        self.rank = 0
         self.latent = bool(self.model_cfg.get("num_latent_layer"))
+        self.kind = backbone_kind(self.model_cfg)
         self.stand_in = None  # (precision, fault) of the reference in the program's place
 
     # -- set-up -----------------------------------------------------------
 
     def setup(self):
         dev, seed, m = self.device, self.seed, self.model_cfg
+        if self.world > 1:
+            if not program.join_world(dev) or world.size() != self.world:
+                raise RuntimeError(f"the cell needs a world of {self.world} ranks; "
+                                   f"this process is in one of {world.size()}")
+            self.rank = world.rank()
         ref = Poser(m).to(dev)
         weights = make_weights(ref, seed, dev, served=False)
         self.mano = make_mano(seed, dev)
@@ -96,22 +121,29 @@ class Driver:
         cal = crops(self.cell.params["calibration"], 1, m["img_size"], seed, "calibration", dev)
         self.stats = calibrate(ref, [cal[k] for k in _INPUTS], derive(seed, "calibration-latent"))
         del ref, cal
-        self.batches = [crops(self.batch, 1, m["img_size"], seed, f"batch{i}", dev, targets=True)
-                        for i in range(self.pool)]
+        self.batches = [self._batch(self.rank, i) for i in range(self.pool)]
         self.state, self.step, self.names = program.train_state(
-            self.cell.config, self.batch, weights, self.stats, self.mano, dev)
-        self.lr = program.lr_for(self.cell.config, self.batch)
-        self.gen = torch.Generator(dev).manual_seed(derive(seed, "droppath"))
-        self.lgen = (torch.Generator(dev).manual_seed(derive(seed, "latent"))
+            self.cell.config, self.batch, weights, self.stats, self.mano, dev, self.world)
+        self.lr = program.lr_for(self.cell.config, self.batch, self.world)
+        self.gen = self._generator(derive(seed, _tag("droppath", self.rank)))
+        self.lgen = (self._generator(derive(seed, _tag("latent", self.rank)))
                      if self.latent else None)
         self.i = 0
         first = self._steps(3)
         first["change"] = {n: _host(p.detach() - weights[n]) for n, p in self._leaves()}
         self.program = {"first": first}
         del weights
+        t, start = time.perf_counter(), self.i
         while self.i < self.keep_at:
             self.unit()
+        # seconds a step at the warm-up's pace (a world sizes its window by it)
+        self.pace = (time.perf_counter() - t) / max(self.i - start, 1)
         self.kept = self._keep()
+
+    def _batch(self, rank: int, i: int) -> dict:
+        """Rank `rank`'s batch `i`, made on this process's card."""
+        return crops(self.batch, 1, self.model_cfg["img_size"], self.seed,
+                     _tag(f"batch{i}", rank), self.device, targets=True)
 
     def _leaves(self):
         return [(self.names[id(p)], p) for p in self.state.optimizer.params()]
@@ -129,10 +161,16 @@ class Driver:
 
     def plant(self, fault: str):
         """Plant `fault` for the readings (never in the benchmark's runs)."""
+        step = self.step
+        if fault == "exchange":
+            def alone(state, batch, gen, lgen):
+                return step.update(state, step.local(batch, gen, lgen))
+
+            self.step = alone
+            return
         if fault != "frozen":
             self.stand_in = _STAND_INS[fault]
             return
-        step = self.step
 
         def frozen(state, batch, gen, lgen):
             before = [p.detach().clone() for p in state.optimizer.params()]
@@ -151,11 +189,11 @@ class Driver:
                                          self.lgen)
         self.loss = float(self.met["loss"])  # a step ends when its loss is on the host
         self.i += 1
-        return self.batch
+        return self.batch * self.world
 
     def spans(self):
         model = self.state.model
-        return ([(b, "pb.block") for b in program.block_modules(model)]
+        return ([(b, "pb.block") for b in program.block_modules(model, self.cell.config)]
                 + [(mod, f"pb.head.{n}") for n, mod in program.head_modules(model).items()])
 
     def optimizer(self):
@@ -196,6 +234,10 @@ class Driver:
         last = self._steps(1)
         last["change"] = {n: _host(p) - k["params"][n] for n, p in self._leaves()}
         self.program["last"] = last
+        if self.world > 1:
+            self.apart = world.apart([p for _, p in self._leaves()])
+        # each rank's generators at the kept step, for the reference
+        self.kept_gens = world.gather((k["gen"], k["lgen"]))
 
     def release(self):
         del self.state, self.step
@@ -216,27 +258,37 @@ class Driver:
         weights = make_weights(ref, self.seed, self.device, served=False)
         load_reference(ref, weights, self.mano, self.stats)
         del weights
-        _plant_reference(ref, fault)
+        _plant_reference(ref, fault, self.kind)
         rows = slice(0, self.batch // 2) if fault == "half" else None
-        k = self.kept
-        lgen = self._generator(derive(self.seed, "latent")) if self.latent else None
+        k, ranks = self.kept, range(self.world)
+
+        def shards(i):  # the world's batch `i`, one rank's rows a shard
+            return [self.batches[i] if r == 0 else self._batch(r, i) for r in ranks]
+
+        def gens(tag):
+            return [self._generator(derive(self.seed, _tag(tag, r))) for r in ranks]
+
         with reference_numerics(precision):
-            first = reference_steps(ref, self.batches[:3], self.lr,
-                                    self._generator(derive(self.seed, "droppath")), lgen,
-                                    loss_rows=rows)
+            first = reference_steps(ref, [shards(i) for i in range(3)], self.lr, gens("droppath"),
+                                    gens("latent") if self.latent else None, loss_rows=rows)
             with torch.no_grad():
                 for n, p in k["params"].items():
                     ref.get_parameter(n).copy_(p)
-            lgen = self._generator(state=k["lgen"]) if self.latent else None
-            last = reference_steps(ref, [self.batches[k["batch"]]], self.lr,
-                                   self._generator(state=k["gen"]), lgen, k, rows)
+            last = reference_steps(
+                ref, [shards(k["batch"])], self.lr,
+                [self._generator(state=g) for g, _ in self.kept_gens],
+                [self._generator(state=g) for _, g in self.kept_gens] if self.latent else None,
+                k, rows)
         del ref
         return {"first": first, "last": last}
 
     def check(self) -> dict:
         truth = self._reference("f32")
         got = self.program if self.stand_in is None else self._reference(*self.stand_in)
-        return compare(got, truth)
+        out = compare(got, truth, self.kind.block_leaf)
+        if self.world > 1:
+            out["ranks_apart"] = self.apart
+        return out
 
 
 class _Twice(torch.autograd.Function):
@@ -251,13 +303,19 @@ class _Twice(torch.autograd.Function):
         return 2 * g
 
 
-def _plant_reference(ref: Poser, fault) -> None:
+def _plant_reference(ref: Poser, fault, kind) -> None:
     if fault == "grad2":
         ref.backbone.register_forward_hook(lambda mod, args, out: _Twice.apply(out))
     elif fault == "dw":
         for name, p in ref.named_parameters():
-            if re.fullmatch(r"backbone\..*\.blocks\.\d+\.output\.dense\.weight", name):
+            if kind.mlp_out_weight(name):
                 p.register_hook(lambda g: 2 * g)
+
+
+def _tag(stream: str, rank: int) -> str:
+    """The seed stream `stream` of rank `rank` (rank 0's is a one-card
+    cell's)."""
+    return stream if rank == 0 else f"{stream}.rank{rank}"
 
 
 def kind(name: str) -> str:
@@ -283,9 +341,10 @@ def _worst_kind(gaps: dict):
     return worst, med[worst]
 
 
-def compare(got: dict, truth: dict) -> dict:
+def compare(got: dict, truth: dict, block_leaf) -> dict:
     """The numbers (see the module's text) and, under ``info``, the
-    readings kept beside them."""
+    readings kept beside them; `block_leaf` tells the backbone's blocks'
+    leaves."""
     out, info = {}, {}
     for part, tag in (("first", ""), ("last", "_last")):
         g, t = got[part], truth[part]
@@ -296,7 +355,7 @@ def compare(got: dict, truth: dict) -> dict:
         grad = _gaps(g["grads"], t["grads"], moved)
         change = _gaps(g["change"], t["change"], moved)
         worst_kind, worst_kind_gap = _worst_kind(grad)
-        blocks_kind, blocks_gap = _worst_kind({n: x for n, x in grad.items() if ".blocks." in n})
+        blocks_kind, blocks_gap = _worst_kind({n: x for n, x in grad.items() if block_leaf(n)})
         worst = max(grad, key=grad.get)
         out[f"joint_mean_mm{tag}"] = float(dist.mean())
         out[f"grad{tag}"] = statistics.median(grad.values())

@@ -68,7 +68,7 @@ def _head_qk(name: str) -> bool:
 def make_weights(model: Poser, seed: int, device, served: bool) -> Dict[str, torch.Tensor]:
     """Every parameter of `model`'s schema, by name, f32 on `device`."""
     named = list(model.named_parameters())
-    head_dim = model.query_token.shape[1] // model.cfg["backbone"]["num_heads"][-1]
+    head_dim = model.query_token.shape[1] // model.heads
     total = sum(p.numel() for _, p in named)
     gen = torch.Generator(device).manual_seed(derive(seed, "weights"))
     draw = torch.randn(total, generator=gen, device=device)
