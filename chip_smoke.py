@@ -2120,7 +2120,7 @@ def dexycb_fixture(work, have, tag):
 
     from cs_vit_tpu_torch.data import DexYCB
     from cs_vit_tpu_torch.data.fixtures import (
-        _write_images,
+        write_images,
         make_synthetic_dexycb,
         synthetic_dexycb_sequences,
     )
@@ -2138,7 +2138,7 @@ def dexycb_fixture(work, have, tag):
                      for seq in synthetic_dexycb_sequences((split,), n_seqs, seq_len,
                                                            LIFECYCLE_HW, seed)]
         for _, _, arrays in sequences:
-            _write_images(data_root, [r.decode() for r in arrays["imgs_path"]],
+            write_images(data_root, [r.decode() for r in arrays["imgs_path"]],
                           arrays["images"])
     n_frames = {split: n * T for split, (n, T), _ in splits}
     print(f"{tag}: synthetic DexYCB at {LIFECYCLE_HW[0]}x{LIFECYCLE_HW[1]}, "
@@ -2380,7 +2380,7 @@ def datasets(torch, launches, have, bare_step_ms):
     from cs_vit_tpu_torch.data import HO3D, ConcatDataset, InterHand26MSeq
     from cs_vit_tpu_torch.data.dexycb import load_image_rgb
     from cs_vit_tpu_torch.data.fixtures import (
-        _write_images,
+        write_images,
         make_synthetic_ho3d,
         make_synthetic_ih26mseq,
         synthetic_ho3d_sequences,
@@ -2419,10 +2419,10 @@ def datasets(torch, launches, have, bare_step_ms):
         ih_seqs = [seq for split, T, seed in ih_splits
                    for seq in synthetic_ih26mseq_sequences((split,), T, DATASETS_IH_HW, seed)]
         for _, _, arrays in ho3d_seqs:
-            _write_images(ho3d_root, [r.decode() for r in arrays["img_path"]],
+            write_images(ho3d_root, [r.decode() for r in arrays["img_path"]],
                           arrays["images"])
         for split, _, arrays in ih_seqs:
-            _write_images(osp.join(ih_root, "images", split),
+            write_images(osp.join(ih_root, "images", split),
                           [r.decode() for r in arrays["img_path"]], arrays["images"])
     n_train = sum(n * T for _, (n, T), _ in ho3d_splits[:1]) + 2 * DATASETS_IH_TRAIN
     n_eval = {"ho3d": DATASETS_HO3D_EVAL[0] * DATASETS_HO3D_EVAL[1],

@@ -17,6 +17,7 @@ from ..config import FinetuneConfig
 from ..data import HO3D, ConcatDataset, DataLoader, DexYCB, InterHand26MSeq
 from ..mano import ManoLayer, find_and_load
 from ..models import Poser, PoserConfig
+from ..models.dinov2 import Dinov2Backbone, Dinov2Config, convert_hf_dinov2_state_dict
 from ..parallel import make_mesh
 from ..utils.dist import process_count, process_index
 
@@ -74,20 +75,45 @@ def resolve_attention_impl(impl: str) -> str:
     raise ValueError(f"attention_impl {impl!r} is not available in cs_vit_tpu_torch")
 
 
+def _hf_config(backbone: Optional[str]) -> Optional[dict]:
+    """The ``config.json`` of a local HF checkpoint directory (None for a
+    name)."""
+    if not backbone or not osp.isdir(backbone):
+        return None
+    with open(osp.join(backbone, "config.json")) as f:
+        return json.load(f)
+
+
 def _backbone_arch_name(backbone: Optional[str]) -> str:
-    """An arch name from either a name or a local HF checkpoint directory."""
+    """An arch name from either a name or a local HF checkpoint directory:
+    a directory whose ``config.json`` says ``"model_type": "dinov2"`` is
+    ``dinov2`` (its widths go to ``PoserConfig.custom_dinov2``), any other a
+    SwinV2 by its ``embed_dim``."""
     if not backbone:
         return "swinv2-tiny-256"
-    if osp.isdir(backbone):
-        with open(osp.join(backbone, "config.json")) as f:
-            hf = json.load(f)
-        return "swinv2-base-256" if hf.get("embed_dim", 96) >= 128 else "swinv2-tiny-256"
-    return backbone
+    hf = _hf_config(backbone)
+    if hf is None:
+        return backbone
+    if hf.get("model_type") == "dinov2":
+        return "dinov2"
+    return "swinv2-base-256" if hf.get("embed_dim", 96) >= 128 else "swinv2-tiny-256"
+
+
+def dinov2_config_from_hf(hf: dict) -> Dinov2Config:
+    """A ``transformers`` ``Dinov2Config`` (its ``config.json``) as the
+    port's: the fields of the same names, HF's defaults where absent."""
+    defaults = dict(image_size=518, patch_size=14, num_channels=3, hidden_size=768,
+                    num_hidden_layers=12, num_attention_heads=12, mlp_ratio=4,
+                    layer_norm_eps=1e-6, layerscale_value=1.0, use_swiglu_ffn=False)
+    return Dinov2Config(**{k: hf.get(k, v) for k, v in defaults.items()})
 
 
 def poser_config_from(cfg: FinetuneConfig) -> PoserConfig:
+    hf = _hf_config(cfg.backbone)
     return PoserConfig(
         backbone=_backbone_arch_name(cfg.backbone),
+        custom_dinov2=dinov2_config_from_hf(hf) if hf and hf.get("model_type") == "dinov2"
+        else None,
         num_pose_query=cfg.num_joints,
         num_spatial_layer=cfg.num_spatial_layer,
         spatial_layer_type=cfg.spatial_layer_type,
@@ -157,10 +183,12 @@ def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
 
 
 def load_backbone_params(backbone_dir: str, backbone: torch.nn.Module) -> bool:
-    """Load pretrained HF Swinv2 weights from a local checkpoint directory
-    (``model.safetensors``, else ``pytorch_model.bin``) into `backbone`,
-    strictly; False when the directory holds neither file. The backbone's
-    names are HF's, so each is taken as it is or under ``swinv2.``."""
+    """Load pretrained HF Swinv2 or DINOv2 weights from a local checkpoint
+    directory (``model.safetensors``, else ``pytorch_model.bin``) into
+    `backbone`, strictly; False when the directory holds neither file. The
+    backbone's names are HF's, so each is taken as it is or under
+    ``swinv2.``; a DINOv2 state dict goes through
+    ``convert_hf_dinov2_state_dict`` first."""
     st_path = osp.join(backbone_dir, "model.safetensors")
     bin_path = osp.join(backbone_dir, "pytorch_model.bin")
     if osp.exists(st_path):
@@ -169,6 +197,8 @@ def load_backbone_params(backbone_dir: str, backbone: torch.nn.Module) -> bool:
         sd, path = torch.load(bin_path, map_location="cpu", weights_only=True), bin_path
     else:
         return False
+    if isinstance(backbone, Dinov2Backbone):
+        sd = convert_hf_dinov2_state_dict(sd, backbone.config)
     picked = {}
     for name in backbone.state_dict():
         key = next((k for k in (name, "swinv2." + name) if k in sd), None)

@@ -36,6 +36,7 @@ import argparse
 import datetime
 import os
 import time
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -159,13 +160,7 @@ def main(cfg: FinetuneConfig, ckpt_root: str = "./checkpoints", log_every: int =
         t_log = time.monotonic()
         meter = StepTimer(warmup=2)
         loader_wait, t_ready = 0.0, time.perf_counter()
-        batches = enumerate(device_prefetch(loader, device, patches_dtype=compute_dtype))
-        while True:
-            with annotate("csvit.data.wait"):
-                item = next(batches, None)
-            if item is None:
-                break
-            it, batch = item
+        for it, batch in enumerate(device_batches(loader, device, compute_dtype)):
             loader_wait += time.perf_counter() - t_ready
             state, metrics = train_step(state, batch, generator, latent_generator)
             meter.update(cfg.batch_size)
@@ -208,6 +203,20 @@ def main(cfg: FinetuneConfig, ckpt_root: str = "./checkpoints", log_every: int =
                 save_payload(exp_dir, epoch, payload)
     tb.close()
     return state
+
+
+def device_batches(loader, device, compute_dtype: Optional[torch.dtype] = None
+                   ) -> Iterator[Dict[str, torch.Tensor]]:
+    """One epoch of `loader`'s batches on `device` through
+    ``device_prefetch`` (``patches`` cast to `compute_dtype` on the host),
+    each wait for the next batch inside a ``csvit.data.wait`` span."""
+    batches = device_prefetch(loader, device, patches_dtype=compute_dtype)
+    while True:
+        with annotate("csvit.data.wait"):
+            batch = next(batches, None)
+        if batch is None:
+            return
+        yield batch
 
 
 def reprojection_image(batch, metrics, cfg: FinetuneConfig) -> np.ndarray:

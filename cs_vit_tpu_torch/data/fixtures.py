@@ -29,7 +29,9 @@ def _random_images(n: int, size: Tuple[int, int], rng) -> np.ndarray:
                      for _ in range(n)])
 
 
-def _write_images(root: str, rel_paths, images: np.ndarray) -> None:
+def write_images(root: str, rel_paths, images: np.ndarray) -> None:
+    """Write each uint8 [H,W,3] image to ``root/<rel path>`` (JPEG by the
+    name's suffix), making the folders."""
     import cv2
 
     for rel, img in zip(rel_paths, images):
@@ -117,7 +119,7 @@ def make_synthetic_dexycb(
             g = f.create_group("sequences")
             for _ in range(num_seqs):
                 _, name, arrays = next(seqs)
-                _write_images(root, [r.decode() for r in arrays["imgs_path"]], arrays["images"])
+                write_images(root, [r.decode() for r in arrays["imgs_path"]], arrays["images"])
                 seq = g.create_group(name)
                 for key in ("imgs_path", "handedness", "joint_3d", "joint_2d", "intrinsics",
                             "pose_m", "beta"):
@@ -220,7 +222,7 @@ def make_synthetic_ho3d(
             for _ in range(num_seqs):
                 _, name, arrays = next(seqs)
                 seq = g.create_group(name)
-                _write_images(root, [r.decode() for r in arrays["img_path"]], arrays["images"])
+                write_images(root, [r.decode() for r in arrays["img_path"]], arrays["images"])
                 for key, value in arrays.items():
                     if key != "images":
                         seq.create_dataset(key, data=value)
@@ -285,7 +287,7 @@ def make_synthetic_ih26mseq(
             for _ in range(2):  # the right hand, then the left
                 _, path, arrays = next(seqs)
                 a = f.create_group(path).create_group("annots")
-                _write_images(osp.join(root, "images", split),
+                write_images(osp.join(root, "images", split),
                               [r.decode() for r in arrays["img_path"]], arrays["images"])
                 for key, value in arrays.items():
                     if key != "images":

@@ -1,28 +1,51 @@
 """DINOv2 backbone for TI-DINO (port of ``cs_vit_tpu/models/dinov2.py``; ref
-``ti_vit.py:281-338``).
+``ti_vit.py:281-338``) and for the Poser (``PoserConfig(backbone="dinov2-*")``).
 
 ``transformers.Dinov2Model``'s module names (``embeddings.*``,
 ``encoder.layer.N.{norm1, attention, layer_scale1, norm2, mlp,
-layer_scale2}``, ``layernorm``), so an HF state dict loads with
+layer_scale2}``, ``layernorm``), so a converted HF state dict loads with
 ``strict=True``: CLS + patch embedding, pre-norm blocks with LayerScale, a
 GELU or SwiGLU MLP, and the backbone head that layer-norms the last hidden
-state and returns the patches without the CLS token. ``embeddings.mask_token``
-is carried (a buffer) for the names' sake and never read. When the patch
+state and returns the patches without the CLS token. HF's
+``embeddings.mask_token``, which only DINOv2's masked pretraining reads, is
+not carried: ``convert_hf_dinov2_state_dict`` leaves it out. When the patch
 grid differs from the configured one, the patch position table is resized
 bicubically as ``jax.image.resize`` does (Keys cubic, a = -0.5, half-pixel
 centres, the kernel widened when shrinking).
+
+Two attention paths, by ``attention_impl``: ``"eager"`` (the default, and
+what TI-DINO runs) computes ``softmax(q k^T / sqrt(d_h)) v`` explicitly
+with flax's LayerNorm numerics, as the JAX package does; ``"fused"`` calls
+``F.scaled_dot_product_attention`` restricted to the flash, cuDNN and
+memory-efficient backends (a fallback to the math backend, which would
+build the [B, H, L, L] score matrix, raises) and ``F.layer_norm``, so that
+autograd keeps no score matrix and no f32 copies of the norms' inputs;
+``"auto"`` takes the fused path for CUDA tensors and the eager one on the
+CPU. The backbone counts attention calls by path (``attn_fused``,
+``attn_explicit``). Under a profiler each layer's fused attention call is a
+``csvit.vit.attn`` span and its SwiGLU or GELU MLP (both linears) a
+``csvit.vit.mlp`` span; the patch embedding and the position table's
+resize are ``csvit.vit.embed``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.nn.attention import SDPBackend, sdpa_kernel
 
+from ..utils.profiling import annotate
 from .modules import LayerNorm, Linear
 from .vit import ViTAttention, _Layers, _PatchEmbeddings, check_names
+
+ATTENTION_IMPLS = ("auto", "eager", "fused")
+# the fused path's backends: none of them forms the score matrix
+_FUSED_BACKENDS = [SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                   SDPBackend.EFFICIENT_ATTENTION]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,7 +100,6 @@ class _Dinov2Embeddings(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.cls_token = nn.Parameter(torch.zeros(1, 1, cfg.hidden_size))
-        self.register_buffer("mask_token", torch.zeros(1, cfg.hidden_size))
         self.position_embeddings = nn.Parameter(torch.zeros(1, cfg.num_patches + 1,
                                                             cfg.hidden_size))
         self.patch_embeddings = _PatchEmbeddings(cfg.num_channels, cfg.hidden_size,
@@ -122,6 +144,10 @@ class _Mlp(nn.Module):
             self.fc2 = Linear(D * cfg.mlp_ratio, D)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        with annotate("csvit.vit.mlp"):
+            return self._mlp(x)
+
+    def _mlp(self, x: torch.Tensor) -> torch.Tensor:
         if self.swiglu:
             h1, h2 = self.weights_in(x).chunk(2, dim=-1)
             return self.weights_out(F.silu(h1) * h2)
@@ -139,34 +165,77 @@ class Dinov2Layer(nn.Module):
         self.mlp = _Mlp(cfg)
         self.layer_scale2 = _LayerScale(D, cfg.layerscale_value)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.layer_scale1(self.attention(self.norm1(x)))
-        return x + self.layer_scale2(self.mlp(self.norm2(x)))
+    def forward(self, x: torch.Tensor, fused: bool = False) -> torch.Tensor:
+        """`fused`: the fused attention and norms (see the module's text)."""
+        if not fused:
+            x = x + self.layer_scale1(self.attention(self.norm1(x)))
+            return x + self.layer_scale2(self.mlp(self.norm2(x)))
+        x = x + self.layer_scale1(self._fused_attention(_layer_norm(self.norm1, x)))
+        return x + self.layer_scale2(self.mlp(_layer_norm(self.norm2, x)))
+
+    def _fused_attention(self, x: torch.Tensor) -> torch.Tensor:
+        sa = self.attention.attention
+        B, L, D = x.shape
+        H = sa.num_heads
+        q, k, v = (lin(x).reshape(B, L, H, D // H).transpose(1, 2)
+                   for lin in (sa.query, sa.key, sa.value))
+        with annotate("csvit.vit.attn"), sdpa_kernel(_FUSED_BACKENDS):
+            o = F.scaled_dot_product_attention(q, k, v)
+        return self.attention.output(o.transpose(1, 2).reshape(B, L, D))
+
+
+def _layer_norm(norm: LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """``F.layer_norm`` in the promotion of the input and parameter dtypes
+    (what :func:`modules.layer_norm` returns), its statistics in f32."""
+    dt = torch.promote_types(torch.promote_types(x.dtype, norm.weight.dtype), norm.bias.dtype)
+    return F.layer_norm(x.to(dt), norm.normalized_shape, norm.weight.to(dt), norm.bias.to(dt),
+                        norm.eps)
 
 
 class Dinov2Backbone(nn.Module):
-    """NHWC images [B,H,W,3] -> layer-normed patches without CLS [B, L, D]."""
+    """NHWC images [B,H,W,3] -> layer-normed patches without CLS [B, L, D].
 
-    def __init__(self, config: Dinov2Config):
+    `attention_impl`: ``"eager"``, ``"fused"`` or ``"auto"`` (the module's
+    text). ``forward(x, generator)`` takes the droppath generator as
+    SwinV2's does and draws nothing from it: the published DINOv2 models
+    fine-tune with ``drop_path_rate`` 0."""
+
+    def __init__(self, config: Dinov2Config, attention_impl: str = "eager"):
         super().__init__()
+        if attention_impl not in ATTENTION_IMPLS:
+            raise ValueError(f"a DINOv2 backbone's attention_impl must be one of "
+                             f"{ATTENTION_IMPLS}, got {attention_impl!r}")
         self.config = config
+        self.attention_impl = attention_impl
+        self.attn_fused = 0     # attention calls by F.scaled_dot_product_attention
+        self.attn_explicit = 0  # attention calls by the explicit softmax
         self.embeddings = _Dinov2Embeddings(config)
         self.encoder = _Layers(Dinov2Layer(config) for _ in range(config.num_hidden_layers))
         self.layernorm = LayerNorm(config.hidden_size, eps=config.layer_norm_eps)
 
-    def forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
-        x = self.embeddings(pixel_values)
+    def forward(self, pixel_values: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        fused = self.attention_impl == "fused" or (
+            self.attention_impl == "auto" and pixel_values.is_cuda)
+        with annotate("csvit.vit.embed"):
+            x = self.embeddings(pixel_values)
         for layer in self.encoder.layer:
-            x = layer(x)
+            x = layer(x, fused)
+        n = len(self.encoder.layer)
+        if fused:
+            self.attn_fused += n
+        else:
+            self.attn_explicit += n
         return self.layernorm(x)[:, 1:]
 
 
 def convert_hf_dinov2_state_dict(state_dict, config: Dinov2Config) -> dict:
     """A ``transformers`` ``Dinov2Model`` / ``Dinov2Backbone`` state dict as
     :class:`Dinov2Backbone` takes it: the same names, without a ``dinov2.``
-    prefix."""
+    prefix or the unused ``embeddings.mask_token``."""
     sd = {k[len("dinov2."):] if k.startswith("dinov2.") else k: v
           for k, v in state_dict.items()}
+    sd.pop("embeddings.mask_token", None)
     return check_names(sd, lambda: Dinov2Backbone(config), "Dinov2")
 
 

@@ -1,10 +1,12 @@
-"""Poser: camera-space MANO hand poser on a SwinV2 backbone.
+"""Poser: camera-space MANO hand poser on a SwinV2 or a DINOv2 backbone.
 
 Port of ``cs_vit_tpu/models/poser.py``: ImageNet normalisation, the SwinV2
-backbone, the perspective input (the dense ray grid or the sparse bbox
-corners) and its encoder, which decorates the queries or the patches, the
-latent group's doubling of the batch, the spatial encoder of either type,
-the temporal encoders in both forms (``"full"``: every frame, absolute PE
+backbone (or a DINOv2 one, ``backbone="dinov2-*"``: the heads then run at
+its width, over its patches without the CLS token), the perspective input
+(the dense ray grid or the sparse bbox corners) and its encoder, which
+decorates the queries or the patches, the latent group's doubling of the
+batch, the spatial encoder of either type, the temporal encoders in both
+forms (``"full"``: every frame, absolute PE
 and encoder blocks, also at T=1; ``"realtime"``: the last frame only,
 continuous-time RoPE and cross-attention decoders), the pose/shape/root
 heads, 6D -> axis-angle, the un-rotation of the latent half, the
@@ -73,9 +75,20 @@ from .modules import (
     PositionalEncoding,
     TorchBatchNorm,
 )
+from .dinov2 import Dinov2Backbone, Dinov2Config
 from .swinv2 import SwinV2, SwinV2Config, swinv2_base_256, swinv2_tiny_256
 
 PHASES = ("spatial", "temporal", "inference")
+
+# the published DINOv2 backbones (facebook/dinov2-{size}): width, layers,
+# heads and MLP; "dinov2-<size>-<patch>" names one (patch 14 as published)
+DINOV2_SIZES = {
+    "small": dict(hidden_size=384, num_hidden_layers=12, num_attention_heads=6),
+    "base": dict(hidden_size=768, num_hidden_layers=12, num_attention_heads=12),
+    "large": dict(hidden_size=1024, num_hidden_layers=24, num_attention_heads=16),
+    "giant": dict(hidden_size=1536, num_hidden_layers=40, num_attention_heads=24,
+                  use_swiglu_ffn=True),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,6 +116,7 @@ class PoserConfig:
     custom_swin: Optional[SwinV2Config] = None
     attention_impl: str = "auto"            # "auto" | "eager" | "fused" | "pallas" | "hybrid"
     remat: bool = False                     # recompute backbone blocks in the backward
+    custom_dinov2: Optional[Dinov2Config] = None
 
     def __post_init__(self):
         choices = {
@@ -120,6 +134,32 @@ class PoserConfig:
         if self.num_latent_layer is not None and self.persp_decorate != "patch":
             raise ValueError("the latent group requires persp_decorate='patch' "
                              "(reference ti_poser.py:213-215)")
+        if self.dinov2:
+            for name, unsupported in (("remat", self.remat),
+                                      ("num_latent_layer", self.num_latent_layer is not None),
+                                      ("attention_impl", self.attention_impl in ("pallas",
+                                                                                 "hybrid"))):
+                if unsupported:
+                    raise ValueError(f"a DINOv2 backbone does not take {name}="
+                                     f"{getattr(self, name)!r}")
+            self.dinov2_config()
+
+    @property
+    def dinov2(self) -> bool:
+        """Whether the backbone is a DINOv2 one."""
+        return self.custom_dinov2 is not None or self.backbone.lower().startswith("dinov2")
+
+    def dinov2_config(self) -> Dinov2Config:
+        """The DINOv2 backbone: ``custom_dinov2``, or the published model
+        ``dinov2-<size>-<patch>`` names (its 518-px position table, LayerNorm
+        eps 1e-6, LayerScale 1.0; SwiGLU for ``giant``)."""
+        if self.custom_dinov2 is not None:
+            return self.custom_dinov2
+        parts = self.backbone.lower().split("-")
+        if len(parts) != 3 or parts[1] not in DINOV2_SIZES or not parts[2].isdigit():
+            raise ValueError(f"unknown backbone spec: {self.backbone} (DINOv2 names are "
+                             f"dinov2-<{'|'.join(DINOV2_SIZES)}>-<patch>)")
+        return Dinov2Config(patch_size=int(parts[2]), **DINOV2_SIZES[parts[1]])
 
     def swin_config(self) -> SwinV2Config:
         if self.custom_swin is not None:
@@ -139,15 +179,21 @@ class PoserConfig:
 
     @property
     def hidden_dim(self) -> int:
+        if self.dinov2:
+            return self.dinov2_config().hidden_size
         return self.swin_config().num_features
 
     @property
     def num_heads(self) -> int:
+        if self.dinov2:
+            return self.dinov2_config().num_attention_heads
         return self.swin_config().num_heads[-1]
 
     @property
     def num_p(self) -> int:
         """Patch tokens per side of the backbone's last stage."""
+        if self.dinov2:
+            return self.image_size // self.dinov2_config().patch_size
         sw = self.swin_config()
         return self.image_size // (sw.patch_size * 2 ** (sw.num_layers - 1))
 
@@ -308,7 +354,10 @@ class Poser(nn.Module):
         super().__init__()
         cfg = self.config = config
         D = cfg.hidden_dim
-        self.backbone = SwinV2(cfg.swin_config(), attention_impl=cfg.attention_impl)
+        if cfg.dinov2:
+            self.backbone = Dinov2Backbone(cfg.dinov2_config(), cfg.attention_impl)
+        else:
+            self.backbone = SwinV2(cfg.swin_config(), attention_impl=cfg.attention_impl)
         self.latent_trans = None
         if cfg.num_latent_layer is not None:
             self.latent_trans = ScaleRotComplexEmbedTransformationGroup(
@@ -605,9 +654,11 @@ def init_poser_weights(model: Poser, seed: int) -> None:
     LeCun-normal kernels, zero biases, unit norm scales, logit scale ln 10,
     N(0, 1/D) query tokens, N(0, 1) positional tables and RoPE2D radial
     embedding, the log-spaced ``freq_base`` of the angle embedders, and zero
-    ``zero_conv`` unless ``temporal_init_method="random"``. Draws come from one CPU
-    ``torch.Generator`` in parameter order, so a seed gives the same weights
-    on every device."""
+    ``zero_conv`` unless ``temporal_init_method="random"``; a DINOv2
+    backbone's CLS token and position table N(0, 0.02) clipped at 2 sigma
+    and its LayerScales at the configured value (TI-DINO's rules). Draws
+    come from one CPU ``torch.Generator`` in parameter order, so a seed
+    gives the same weights on every device."""
     gen = torch.Generator().manual_seed(seed)
     zero_init = model.config.temporal_init_method == "zero"
 
@@ -618,6 +669,11 @@ def init_poser_weights(model: Poser, seed: int) -> None:
         leaf = name.rsplit(".", 1)[-1]
         if name == "query_token":
             value = normal(p.shape, p.shape[1] ** -0.5)
+        elif name in ("backbone.embeddings.cls_token", "backbone.embeddings.position_embeddings"
+                      ) and model.config.dinov2:
+            value = torch.clamp(normal(p.shape, 0.02), -0.04, 0.04)
+        elif leaf == "lambda1":  # a DINOv2 LayerScale
+            value = torch.full(p.shape, model.backbone.config.layerscale_value)
         elif name.endswith("logit_scale"):
             value = torch.full(p.shape, float(np.log(10.0)))
         elif name.endswith(".pe.weight") or name.endswith("rope2d.embedding"):

@@ -174,8 +174,6 @@ class FlaxMapper:
         self.patch_embed(fpath + ("patch_embed",), _join(tname, "embeddings.patch_embeddings"))
         for n in ("cls_token", "position_embeddings"):
             self.out[_join(tname, f"embeddings.{n}")] = self.p[fpath + (n,)]
-        width = self.p[fpath + ("cls_token",)].shape[-1]
-        self.out[_join(tname, "embeddings.mask_token")] = np.zeros((1, width), np.float32)
         for i in range(num_layers):
             b, t = fpath + (f"block{i}",), _join(tname, f"encoder.layer.{i}")
             self.ln(b + ("norm1",), _join(t, "norm1"))

@@ -31,8 +31,13 @@ or any ``torch.profiler.profile``):
   ``csvit.serve.forward`` and ``csvit.serve.output`` (the copies to the
   host, which wait for the forward), one each for every chunk of
   ``PoserSession.predict_crops`` (``serving.py``);
-* ``csvit.data.wait`` (``cli/finetune.py``, ``cli/evaluate.py``), the wait
-  for the loader's next batch.
+* ``csvit.data.wait`` (``cli/finetune.py:device_batches``,
+  ``cli/evaluate.py``), the wait for the loader's next batch;
+* ``csvit.vit.embed``, ``csvit.vit.attn`` and ``csvit.vit.mlp``
+  (``models/dinov2.py``): a DINOv2 backbone's patch embedding and position
+  table resize, each layer's fused attention call
+  (``F.scaled_dot_product_attention``, the fused path only), and each
+  layer's MLP with both its linears.
 
 The profiler writes each span on the timeline of the kernels and copies it
 launches, so the card's idle time can be put down to the span that was
